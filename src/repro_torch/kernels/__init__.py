@@ -1,0 +1,28 @@
+"""Hand-written CUDA kernels of the port, their plain PyTorch versions, and
+the launch counts that show a run went through the kernels.
+
+Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
+launches its kernel on a CUDA tensor, and nowhere else; on a CPU tensor it
+runs the plain version and counts nothing.
+"""
+from __future__ import annotations
+
+# name -> (source in the repo, the Pallas function it replaces)
+KERNELS = {
+    "segmented_min2_scan": (
+        "src/repro_torch/kernels/csrc/segscan.cu",
+        "src/repro/kernels/segment_min/segment_min.py:101"),
+    "masked_minplus_scan": (
+        "src/repro_torch/kernels/csrc/segscan.cu",
+        "src/repro/kernels/spmv_minplus/spmv_minplus.py:96"),
+    "pointer_jump": (
+        "src/repro_torch/kernels/csrc/pointer_jump.cu",
+        "src/repro/kernels/spmv_minplus/spmv_minplus.py:153"),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,96 @@
+"""Segmented pair-lex min-scan: the CUDA kernel and its plain version.
+
+Port of the Pallas kernel ``kernels/segment_min/segment_min.py::
+segmented_min2_scan`` of the JAX package.  The reference scans the packed
+key as two uint32 lanes ``(hi, lo)`` compared lexicographically; the port
+carries the pair as one sign-flipped int64 word (``core/keys.py``), whose
+signed order is that lexicographic order, and ``INF`` is ``INT64_MAX``.
+
+On a CUDA tensor :func:`segmented_min2_scan` launches ``csrc/segscan.cu``
+(built on first use); on a CPU tensor it runs
+:func:`segmented_min2_scan_plain`.  The masked variant of the same kernel
+(``masked_minplus_scan``) shares :func:`launch_segscan`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch import kernels
+
+
+def check_lanes(name: str, seg: torch.Tensor, key: torch.Tensor,
+                 oth: Optional[torch.Tensor] = None) -> None:
+    lanes = (seg, key) if oth is None else (seg, oth, key)
+    for t in lanes:
+        if t.ndim != 1 or t.shape[0] != seg.shape[0]:
+            raise ValueError(f"{name}: lanes must be 1-D of one length")
+        if t.device != seg.device:
+            raise ValueError(f"{name}: lanes must share one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: lanes must be contiguous")
+    if seg.dtype != torch.int32 or (oth is not None and oth.dtype != torch.int32):
+        raise TypeError(f"{name}: segment lanes must be int32")
+    if key.dtype != torch.int64:
+        raise TypeError(f"{name}: keys must be int64 (flipped packed keys)")
+
+
+def segmented_min2_scan_plain(seg: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch inclusive segmented min-scan along sorted ``seg`` runs:
+    Hillis–Steele doubling, ⌈log2 M⌉ shifted compares over the whole array."""
+    val = key.clone()
+    m = val.shape[0]
+    shift = 1
+    while shift < m:
+        take = seg[shift:] == seg[:-shift]
+        nxt = val.clone()
+        nxt[shift:] = torch.where(take, torch.minimum(val[shift:], val[:-shift]),
+                                  val[shift:])
+        val = nxt
+        shift *= 2
+    return val
+
+
+def launch_segscan(name: str, seg: torch.Tensor, oth: Optional[torch.Tensor],
+                   key: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/segscan.cu`` on the current stream (``oth=None`` for
+    the unmasked scan) and count one launch of ``name``."""
+    from repro_torch.kernels import build
+    lib = build.load("segscan")
+    lib.segscan_min.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                                        ctypes.c_void_p]
+    lib.segscan_min.restype = ctypes.c_int
+    lib.segscan_tile_size.restype = ctypes.c_int
+    m = seg.shape[0]
+    out = torch.empty_like(key)
+    if m == 0:
+        return out
+    ntiles = -(-m // lib.segscan_tile_size())
+    meta = torch.empty(3 * ntiles, dtype=torch.int32, device=seg.device)
+    last = torch.empty(ntiles, dtype=torch.int64, device=seg.device)
+    stream = torch.cuda.current_stream(seg.device).cuda_stream
+    err = lib.segscan_min(seg.data_ptr(),
+                          None if oth is None else oth.data_ptr(),
+                          key.data_ptr(), out.data_ptr(), meta.data_ptr(),
+                          last.data_ptr(), m, stream)
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def segmented_min2_scan(seg: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented min-scan of ``key`` along sorted ``seg``.
+
+    ``seg`` int32 (M,) sorted ascending, ``key`` flipped int64 (M,).  The
+    run ends of the result hold each segment's min.  CUDA tensors launch the
+    kernel; CPU tensors take the plain version; any other device raises.
+    """
+    check_lanes("segmented_min2_scan", seg, key)
+    if seg.device.type == "cpu":
+        return segmented_min2_scan_plain(seg, key)
+    if seg.device.type != "cuda":
+        raise RuntimeError(f"segmented_min2_scan: no kernel for {seg.device}")
+    return launch_segscan("segmented_min2_scan", seg, None, key)
+
