@@ -11,18 +11,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    versions, and a build of every CUDA kernel from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, started together), with the
    compiler's ``-Xptxas -v`` report;
-2. kernels against their plain PyTorch versions, bit for bit, at the main
-   path's shapes (inputs taken from round 1 of the RMAT scale-20 solve) and
-   on edge cases, each timed with CUDA events beside its bytes bound, its
-   plain version and, where one exists, a single PyTorch library call;
+2. kernels against their plain PyTorch versions, bit for bit, at the
+   paths' shapes and on edge cases, each timed with CUDA events beside its
+   bound, its plain version and, where one exists, a single PyTorch
+   library call: the election scans and the pointer jump with inputs from
+   round 1 of the RMAT scale-20 device-loop solve, the 32-bit scan with
+   inputs from round 1 of the host-loop solve of the same graph, and the
+   edge-hash lookup over the one-process hash table of that graph's
+   adjacency (its host build timed as set-up);
 3. the main path — ``minimum_spanning_forest(graph, method="boruvka")`` on
    a Graph500-style RMAT graph of scale 20 (average degree 32, fixed seed)
    with ``use_pallas=True`` under both round bodies, each forest held
    against the numpy Borůvka oracle, the kernels' launch counts read, the
    median wall time over several runs, and one profiler window;
-4. a small RMAT scale-10 sweep over every knob the port exposes, each
-   forest held against Kruskal and against the same solve on the CPU;
-5. one ``{"kernels": [...]}`` line, the card line, and last the result
+4. the legacy host loop (``round_loop="host"``) on the same graph with and
+   without the 32-bit scan kernel, each forest held against the oracle,
+   beside the device loop's medians; and the edge-hash lookup path
+   (``edge_hash.ops.lookup``) over every directed edge and as many misses,
+   its answers checked against the adjacency;
+5. a small RMAT scale-10 sweep over every knob the port exposes, both round
+   loops, each forest held against Kruskal and against the same solve on
+   the CPU;
+6. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
@@ -45,6 +55,8 @@ INT_OPS_PER_S = 67e12           # H100 SXM non-tensor peak (float32 rate)
 SCALE = 20
 SEED = 20
 SOLVE_RUNS = 5
+HOST_SOLVE_RUNS = 3
+MISS_SHIFT = 7919               # receiver shift of the lookup's miss queries
 
 
 def _log(*parts) -> None:
@@ -88,17 +100,20 @@ def _bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _scan_cases(torch, dev, inf):
-    """Edge cases for the scan kernels: (name, seg, oth, key)."""
+def _scan_cases(torch, dev, inf, dtype=None):
+    """Edge cases for the scan kernels: (name, seg, oth, key); the values
+    are int64 words, or int32 words for ``dtype=torch.int32``."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
+    dtype = dtype or torch.int64
+    span = 2 ** 62 if dtype == torch.int64 else 2 ** 31 - 1
 
     def keys(m, choices=None):
         if choices is not None:
             k = choices[torch.randint(0, choices.numel(), (m,), generator=g)]
         else:
-            k = torch.randint(-2 ** 62, 2 ** 62, (m,), generator=g)
+            k = torch.randint(-span, span, (m,), generator=g)
         k[torch.rand(m, generator=g) < 0.05] = inf
-        return k
+        return k.to(dtype)
 
     def case(name, seg, key):
         oth = torch.randint(0, 64, (seg.numel(),), generator=g)
@@ -112,19 +127,18 @@ def _scan_cases(torch, dev, inf):
                torch.sort(torch.randint(0, m // 3000, (m,), generator=g)).values,
                keys(m))
     yield case("all INF", torch.sort(torch.randint(0, 64, (m,), generator=g)).values,
-               torch.full((m,), inf, dtype=torch.int64))
+               torch.full((m,), inf, dtype=dtype))
     r = (1 << 20) + 12345
     yield case("ragged length", torch.sort(torch.randint(0, r // 7, (r,), generator=g)).values,
                keys(r))
     yield case("duplicate keys", torch.sort(torch.randint(0, m // 50, (m,), generator=g)).values,
-               keys(m, torch.tensor([5, -7, inf - 1, -2 ** 63], dtype=torch.int64)))
+               keys(m, torch.tensor([5, -7, inf - 1, -inf - 1], dtype=torch.int64)))
 
 
 def phase_kernels(torch, dev, graph, bundle, record) -> list:
     """Phase 2: every kernel of the main path against its plain version."""
     from repro_torch.core import keys, union_find
     from repro_torch.core.boruvka_dist import _take
-    from repro_torch.kernels import KERNELS
     from repro_torch.kernels.spmv_minplus import ops as spmv_ops
     from repro_torch.kernels.segment_min.segment_min import (
         segmented_min2_scan, segmented_min2_scan_plain)
@@ -177,32 +191,38 @@ def phase_kernels(torch, dev, graph, bundle, record) -> list:
          None, 4 * n + 4 * n + 4 * n, 2 * n * jump_steps(n),
          _jump_cases(torch, dev, n)),
     ]
-    rows = []
-    for name, kernel, plain, args, library, nbytes, nops, cases in specs:
-        for cname, case_args in [("main path", args)] + cases:
-            got, want = kernel(*case_args), plain(*case_args)
-            torch.cuda.synchronize()
-            err = _max_abs_err(torch, got, want)
-            _log(f"kernel {name} [{cname}, {want.numel()} lanes] "
-                 f"bit_exact={err == 0}")
-            if err:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version on {cname} (max abs err {err})")
-        ms = _time_ms(torch, lambda: kernel(*args), 20)
-        plain_ms = _time_ms(torch, lambda: plain(*args), 3, warmup=1)
-        library_ms = _time_ms(torch, library, 20) if library else None
-        bound_ms, bound_by = _bound_ms(nbytes, nops)
-        source, replaces = KERNELS[name]
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=0, bit_exact=True,
-                         max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms, lanes=args[-1].numel()))
-        _log(f"kernel {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
-             f"{bound_by}, plain {plain_ms:.4f} ms, library "
-             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
+    rows = [_kernel_row(torch, *spec) for spec in specs]
     record["kernels_phase"] = rows
     return rows
+
+
+def _kernel_row(torch, name, kernel, plain, args, library, nbytes, nops,
+                cases) -> dict:
+    """Hold one kernel against its plain version on the path's inputs and
+    on its edge cases (any difference raises), then time the kernel, the
+    plain version and the library call; the row of the kernels line."""
+    from repro_torch.kernels import KERNELS
+    for cname, case_args in [("main path", args)] + cases:
+        got, want = kernel(*case_args), plain(*case_args)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        _log(f"kernel {name} [{cname}, {want.numel()} lanes] "
+             f"bit_exact={err == 0}")
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain "
+                                 f"version on {cname} (max abs err {err})")
+    ms = _time_ms(torch, lambda: kernel(*args), 20)
+    plain_ms = _time_ms(torch, lambda: plain(*args), 3, warmup=1)
+    library_ms = _time_ms(torch, library, 20) if library else None
+    bound_ms, bound_by = _bound_ms(nbytes, nops)
+    source, replaces = KERNELS[name]
+    _log(f"kernel {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
+         f"{bound_by}, plain {plain_ms:.4f} ms, library "
+         f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'})")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, bit_exact=True, max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, lanes=args[-1].numel())
 
 
 def _jump_cases(torch, dev, n):
@@ -216,6 +236,140 @@ def _jump_cases(torch, dev, n):
     return [("deep chain", (as_dev(chain), as_dev(comp))),
             ("random forest", (as_dev(rand), as_dev(comp))),
             ("ragged comp", (as_dev(rand), as_dev(comp[: n // 3 + 7])))]
+
+
+def phase_scan32(torch, dev, graph, record) -> dict:
+    """Phase 2, the host loop's kernel: the 32-bit segmented scan on the
+    lanes of round 1 of the rmat-20 host-loop solve (both endpoint
+    orders), and on edge cases."""
+    from repro_torch.core import keys
+    from repro_torch.core.boruvka_dist import (
+        _election_lanes, _host_lanes, _upload)
+    from repro_torch.kernels.segment_min.segment_min import (
+        segmented_min_scan, segmented_min_scan_plain)
+    inf = keys.INF32
+    n, m = graph.num_vertices, graph.num_edges
+    # Round 1 of the host loop: its upload, and the lanes its election
+    # sorts (``segment_min`` hands the kernel ``seg[order], val[order]``).
+    src_d, dst_d, wb_d, _ = _upload(_host_lanes(graph), 8, dev)
+    comp = torch.arange(n, dtype=torch.int32, device=dev)
+    cs, cd, _, wb, order_s, order_d = _election_lanes(comp, src_d, dst_d,
+                                                      wb_d, sort=True)
+    seg_s, val_s = cs[order_s], wb[order_s]
+    seg_d, val_d = cd[order_d], wb[order_d]
+    M = seg_s.numel()
+    seg64 = seg_s.to(torch.int64)
+    lib_out = torch.full((n,), inf, dtype=torch.int32, device=dev)
+    cases = [("dst order", (seg_d, val_d))] + [
+        (c[0], (c[1], c[3]))
+        for c in _scan_cases(torch, dev, inf, dtype=torch.int32)]
+    row = _kernel_row(
+        torch, "segmented_min_scan", segmented_min_scan,
+        segmented_min_scan_plain, (seg_s, val_s),
+        lambda: lib_out.scatter_reduce_(0, seg64, val_s, "amin"),
+        (4 + 4 + 4) * M, 2 * M, cases)
+    _log(f"kernel segmented_min_scan: {M} lanes (m={m}, padded)")
+    record["scan32_phase"] = row
+    return row
+
+
+def _hash_inputs(graph):
+    """The rmat-20 adjacency as one process's GHS shard lays it out (both
+    directions, sorted by vertex then packed weight key; the position is
+    the CSR slot), its table size, and the queries: every directed
+    ``(receiver, sender)`` pair (hits), then the same with the receiver
+    shifted by ``MISS_SHIFT`` (misses, unless that pair is an edge too)."""
+    import numpy as np
+    from repro_torch.core.params import GHSParams
+    m = graph.num_edges
+    ends = np.concatenate([graph.src, graph.dst])
+    nbr = np.concatenate([graph.dst, graph.src])
+    eid = np.concatenate([np.arange(m)] * 2)
+    order = np.lexsort((graph.packed_keys[eid], ends))
+    lv, u = ends[order].astype(np.int32), nbr[order].astype(np.int32)
+    pos = np.arange(2 * m, dtype=np.int32)
+    tsize = max(64, int(2 * m * GHSParams().hash_table_factor) | 1)
+    q_lv = np.concatenate([lv, lv + MISS_SHIFT]).astype(np.int32)
+    q_u = np.concatenate([u, u])
+    return lv, u, pos, tsize, q_lv, q_u
+
+
+def _hash_cases(torch, dev):
+    """Edge cases for the lookup: (name, (h_lv, h_u, h_pos, q_lv, q_u))."""
+    import numpy as np
+    from repro_torch.kernels.edge_hash import ops as hash_ops
+    from repro_torch.kernels.edge_hash.ref import colliding_pairs
+    rng = np.random.default_rng(SEED)
+
+    def case(name, lv, u, tsize, q_lv, q_u):
+        table = hash_ops.build_table(lv, u, np.arange(lv.size, dtype=np.int32),
+                                     tsize)
+        return (name, tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in (*table, np.asarray(q_lv, np.int32),
+                                      np.asarray(q_u, np.int32))))
+
+    lv, u = colliding_pairs(100, 1021, 17)
+    yield case("chain longer than max_probes", lv, u, 1021,
+               np.concatenate([lv, [5]]), np.concatenate([u, [0]]))
+    lv, u = colliding_pairs(100, 1021, 1000)
+    yield case("wrap-around at the end of the table", lv, u, 1021,
+               np.concatenate([lv, [5]]), np.concatenate([u, [0]]))
+    lv = rng.integers(0, 50, 40).astype(np.int32)
+    u = rng.permutation(1000)[:40].astype(np.int32)
+    yield case("table of 64 slots", lv, u, 64,
+               np.concatenate([lv, lv + 1]), np.concatenate([u, u]))
+    lv = rng.integers(0, 1 << 16, 5000).astype(np.int32)
+    u = rng.permutation(1 << 20)[:5000].astype(np.int32)
+    q = np.array([-1, -1, 0, 7], np.int32)
+    yield case("queries of -1", lv, u, int(5000 * 4.23) | 1,
+               np.concatenate([lv, q]), np.concatenate([u, q[::-1]]))
+
+
+def phase_hash(torch, dev, graph, record):
+    """Phase 2, the edge-hash lookup: the host build of the one-process
+    table (set-up, timed), then the kernel against its plain version on
+    every hit and miss query and on edge cases.  Returns the row and the
+    device inputs for the lookup path."""
+    from repro_torch.kernels.edge_hash import ops as hash_ops
+    from repro_torch.kernels.edge_hash import ref as hash_ref
+    from repro_torch.kernels.edge_hash.edge_hash import (
+        hash_lookup, hash_lookup_plain)
+    t0 = time.perf_counter()
+    lv, u, pos, tsize, q_lv, q_u = _hash_inputs(graph)
+    t_layout = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = hash_ops.build_table(lv, u, pos, tsize)
+    t_build = time.perf_counter() - t0
+    _log(f"hash table: {lv.size} entries in {tsize} slots, layout "
+         f"{t_layout:.2f} s, host build {t_build:.2f} s (set-up)")
+    dev_in = tuple(torch.from_numpy(a).to(dev) for a in (*table, q_lv, q_u))
+    probes = hash_ref.probe_counts(*dev_in)
+    traffic = hash_ref.probe_traffic(*dev_in)
+    Q = q_lv.size
+    mean_probes = traffic["probes"] / Q
+    _log(f"hash lookup: {Q} queries, mean probes {mean_probes:.4f}, max "
+         f"{int(probes.max())}; table reads {traffic}")
+    # The least bytes: each query word read and each answer written once,
+    # and each 32-byte table sector the probes need read once (h_pos and
+    # h_lv at every probed slot, h_u only where h_lv matches).  Beside it,
+    # the bytes of a lookup that shares no sector between queries.
+    sector = 32
+    least = Q * 12 + sector * (2 * traffic["union_lv"] + traffic["union_u"])
+    chain = Q * 12 + sector * (2 * traffic["chain_lv"] + traffic["chain_u"])
+    row = _kernel_row(
+        torch, "hash_lookup", hash_lookup, hash_lookup_plain, dev_in, None,
+        least, 6 * traffic["probes"], list(_hash_cases(torch, dev)))
+    chain_ms = _bound_ms(chain, 0)[0]
+    _log(f"kernel hash_lookup: bytes {least} (each sector once), "
+         f"{chain} ({chain_ms:.4f} ms) with no sector shared between "
+         f"queries")
+    row.update(mean_probes=mean_probes, table_slots=tsize,
+               host_build_s=t_build, table_reads=traffic,
+               no_sharing_bound_ms=chain_ms)
+    record["hash_phase"] = dict(row=row, layout_s=t_layout)
+    return row, dict(table=dev_in[:3], q_lv=dev_in[3], q_u=dev_in[4],
+                     lv=torch.from_numpy(lv).to(dev),
+                     u=torch.from_numpy(u).to(dev), hits=lv.size)
 
 
 def phase_solves(torch, graph, oracle, record) -> dict:
@@ -266,11 +420,8 @@ def phase_solves(torch, graph, oracle, record) -> dict:
 def phase_profile(torch, graph, record) -> None:
     """One profiler window over a fused-kernel solve, and the host
     staging step (layout + upload) timed on its own."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import mst_api, runtime
+    from repro_torch.core import runtime
     from repro_torch.core.params import GHSParams
-    params = GHSParams(round_kernel="pallas", use_pallas=True)
     staging = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -282,6 +433,18 @@ def phase_profile(torch, graph, record) -> None:
     record["staging_s"] = staging
     _log(f"host staging (prepare_edges): median "
          f"{statistics.median(staging):.4f} s over 3 runs")
+    record["profile"] = _profile_window(
+        torch, graph, GHSParams(round_kernel="pallas", use_pallas=True),
+        "chip_smoke_profile.txt")
+
+
+def _profile_window(torch, graph, params, table_name) -> dict:
+    """One profiler window over one solve: device busy time and idle
+    share, the device ops that took longest, and the host's time blocked
+    in synchronizing CUDA calls.  Writes the profiler's table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import mst_api
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -301,33 +464,137 @@ def phase_profile(torch, graph, record) -> None:
     busy_us = sum(dev_us(e) for e in on_device)
     top = sorted(on_device, key=dev_us, reverse=True)[:10]
     idle = 1.0 - busy_us / (window * 1e6) if busy_us else None
-    _log(f"profile: window {window:.4f} s, device busy {busy_us / 1e3:.3f} ms, "
-         f"idle share {'not measured' if idle is None else f'{idle:.4f}'}")
+    waits = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
+             if "Synchronize" in e.key]
+    _log(f"profile ({params.round_loop} loop): window {window:.4f} s, device "
+         f"busy {busy_us / 1e3:.3f} ms, idle share "
+         f"{'not measured' if idle is None else f'{idle:.4f}'}")
     for e in top:
         _log(f"  device op {e.key[:60]!r}: {dev_us(e) / 1e3:.3f} ms "
              f"x{e.count}")
+    for key, ms, count in waits:
+        _log(f"  host wait {key!r}: {ms:.3f} ms x{count}")
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(
+    (OUT_DIR / table_name).write_text(
         events.table(sort_by="self_cpu_time_total", row_limit=60))
-    record["profile"] = dict(
-        window_s=window, device_busy_ms=busy_us / 1e3, idle_share=idle,
-        top=[(e.key, dev_us(e) / 1e3, e.count) for e in top])
+    return dict(window_s=window, device_busy_ms=busy_us / 1e3,
+                idle_share=idle, host_waits=waits,
+                top=[(e.key, dev_us(e) / 1e3, e.count) for e in top])
+
+
+def phase_host_solves(torch, graph, oracle, record) -> int:
+    """Phase 4: the legacy host loop on the rmat-20 graph, with the 32-bit
+    scan kernel and with the scatter-min, beside the device loop's medians
+    from phase 3.  Returns the scan kernel's launches over one solve."""
+    from repro_torch import kernels
+    from repro_torch.core import mst_api
+    from repro_torch.core.params import GHSParams
+    launches = None
+    for up in (True, False):
+        params = GHSParams(round_loop="host", use_pallas=up)
+        walls = []
+        for i in range(HOST_SOLVE_RUNS):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, st = mst_api.minimum_spanning_forest(graph, params=params)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            count = kernels.LAUNCHES["segmented_min_scan"]
+            if not (res.edge_mask == oracle.edge_mask).all():
+                raise AssertionError(f"host loop use_pallas={up}: forest != "
+                                     f"oracle")
+            if res.num_components != oracle.num_components:
+                raise AssertionError(f"host loop use_pallas={up}: "
+                                     f"components differ")
+            if up and count <= 0:
+                raise AssertionError("segmented_min_scan was not launched "
+                                     "on the host loop")
+            if up and launches is None:
+                launches = count
+            _log(f"host loop rmat-{SCALE} use_pallas={up} run {i}: "
+                 f"wall={walls[-1]:.4f} s rounds={st.rounds} "
+                 f"intervals={st.intervals} host_syncs={st.host_syncs} "
+                 f"compactions={st.compactions} segmented_min_scan "
+                 f"launches={count} tree_edges={res.num_tree_edges}")
+        med = statistics.median(walls)
+        _log(f"host loop rmat-{SCALE} use_pallas={up}: median wall "
+             f"{med:.4f} s over {HOST_SOLVE_RUNS} runs, "
+             f"{graph.num_edges / med:.4e} edges/s")
+        record.setdefault("host_solves", {})[str(up)] = dict(
+            walls_s=walls, median_s=med, rounds=st.rounds,
+            intervals=st.intervals, host_syncs=st.host_syncs,
+            compactions=st.compactions, scan_launches=count,
+            active_history=list(st.active_history))
+    for rk, rec in record["solves"].items():
+        _log(f"device loop rmat-{SCALE} round_kernel={rk} (phase 3, this "
+             f"call): median wall {rec['median_s']:.4f} s")
+    record["host_profile"] = _profile_window(
+        torch, graph, GHSParams(round_loop="host", use_pallas=True),
+        "chip_smoke_profile_host.txt")
+    return launches
+
+
+def phase_lookup(torch, inputs, record) -> int:
+    """Phase 4: the edge-hash lookup path, ``edge_hash.ops.lookup``, over
+    every hit and miss query; each answer is checked against the
+    adjacency.  Returns the kernel's launches."""
+    from repro_torch import kernels
+    from repro_torch.kernels.edge_hash import ops as hash_ops
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = hash_ops.lookup(inputs["table"], inputs["q_lv"], inputs["q_u"],
+                          use_pallas=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["hash_lookup"]
+    if launches <= 0:
+        raise AssertionError("hash_lookup was not launched on the lookup path")
+    hits = inputs["hits"]
+    if got.shape != inputs["q_lv"].shape or got.dtype != torch.int32:
+        raise AssertionError("lookup: wrong shape or type")
+    pos = torch.arange(hits, dtype=torch.int32, device=got.device)
+    unresolved = int((got[:hits] < 0).sum())
+    if not torch.equal(got[:hits], pos):
+        raise AssertionError(f"lookup: {unresolved} hit queries unresolved, "
+                             f"or resolved to another position")
+    miss = got[hits:]
+    found = miss >= 0
+    idx = miss[found].to(torch.int64)
+    if not (torch.equal(inputs["lv"][idx], inputs["q_lv"][hits:][found])
+            and torch.equal(inputs["u"][idx], inputs["q_u"][hits:][found])):
+        raise AssertionError("lookup: a miss query resolved to another pair")
+    _log(f"lookup path: {got.numel()} queries in {wall:.4f} s wall, hash_lookup "
+         f"launches={launches}; all {hits} hits at their CSR slot, "
+         f"{int(found.sum())} shifted queries are edges too and resolve "
+         f"to them, {int((~found).sum())} miss")
+    record["lookup"] = dict(wall_s=wall, launches=launches,
+                            shifted_found=int(found.sum()))
+    return launches
 
 
 def phase_sweep(torch, record) -> None:
-    """Phase 4: every knob on a small graph, on the card and on the CPU."""
+    """Phase 5: every knob on a small graph, on the card and on the CPU."""
     from repro_torch.core import generators, kruskal_ref, mst_api
     from repro_torch.core.params import GHSParams
     g = generators.rmat(10, seed=SEED)
     want = kruskal_ref.kruskal(g)
-    fields = ("rounds", "intervals", "host_syncs", "compactions",
-              "active_history")
-    n_ok = 0
-    for rk, up, ip, part in itertools.product(
+    fields = ("rounds", "intervals", "host_syncs", "extra_syncs",
+              "compactions", "edges_scanned", "active_history")
+    settings = [
+        GHSParams(round_kernel=rk, use_pallas=up, interval_pipeline=ip,
+                  partitioner=part)
+        for rk, up, ip, part in itertools.product(
             ("xla", "pallas"), (False, True), (0, 1),
-            ("block", "hashed", "balanced")):
-        params = GHSParams(round_kernel=rk, use_pallas=up,
-                           interval_pipeline=ip, partitioner=part)
+            ("block", "hashed", "balanced"))]
+    settings += [
+        GHSParams(round_loop="host", use_pallas=up, partitioner=part,
+                  compaction=comp)
+        for up, part, comp in itertools.product(
+            (False, True), ("block", "hashed", "balanced"), ("none", "pow2"))]
+    n_ok = 0
+    for params in settings:
         res, st = mst_api.minimum_spanning_forest(g, params=params)
         cpu, cst = mst_api.minimum_spanning_forest(g, params=params,
                                                    device="cpu")
@@ -337,8 +604,8 @@ def phase_sweep(torch, record) -> None:
         if any(getattr(st, f) != getattr(cst, f) for f in fields):
             raise AssertionError(f"sweep {params}: stats differ from CPU")
         n_ok += 1
-    _log(f"sweep rmat-10: {n_ok}/24 knob settings equal Kruskal and the CPU "
-         f"solve")
+    _log(f"sweep rmat-10: {n_ok}/{len(settings)} knob settings (both round "
+         f"loops) equal Kruskal and the CPU solve")
     record["sweep_ok"] = n_ok
 
 
@@ -382,8 +649,17 @@ def main() -> int:
     bundle = runtime.prepare_edges(graph, "block", chunk=8, device=dev)
     rows = phase_kernels(torch, dev, graph, bundle, record)
     del bundle
+    rows.append(phase_scan32(torch, dev, graph, record))
+    hash_row, hash_inputs = phase_hash(torch, dev, graph, record)
+    rows.append(hash_row)
+    torch.cuda.empty_cache()
     launches = phase_solves(torch, graph, oracle, record)
     phase_profile(torch, graph, record)
+    launches["segmented_min_scan"] = phase_host_solves(torch, graph, oracle,
+                                                       record)
+    launches["hash_lookup"] = phase_lookup(torch, hash_inputs, record)
+    del hash_inputs
+    torch.cuda.empty_cache()
     phase_sweep(torch, record)
 
     for row in rows:

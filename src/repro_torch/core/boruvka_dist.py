@@ -17,6 +17,14 @@ per-edge election and winner recording) and ``"pallas"``
 recording and hooking).  With ``params.use_pallas`` they run the
 hand-written CUDA kernels of :mod:`repro_torch.kernels` on a CUDA device.
 
+The legacy host-driven loop (``params.round_loop="host"``,
+:func:`_host_engine`) is the reference's before/after baseline: one round
+per dispatch, a two-phase election over single uint32 lanes (weight bits,
+then edge ids; each carried as a flipped int32, ``core/keys.py``), the
+winners read back every round into a host bitmap, and a host compaction
+with re-upload every ``check_frequency`` rounds.  With ``use_pallas`` its
+per-segment mins run the 32-bit segmented scan kernel.
+
 The reference's device gathers clamp out-of-range indices and its
 scatters drop them; PyTorch raises on both.  So every label gather clamps
 its index explicitly (:func:`_take`), and every dropping scatter writes
@@ -30,12 +38,14 @@ one readback.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import keys as keys_lib
+from repro_torch.core import partition as partition_lib
 from repro_torch.core import runtime
 from repro_torch.core import union_find
 from repro_torch.core.graph import PAD_VERTEX, Graph
@@ -46,7 +56,8 @@ from repro_torch.kernels.segment_min import ops as segops
 from repro_torch.kernels.spmv_minplus import ops as spmv_ops
 
 INF_KEY = keys_lib.INF_KEY
-INF32 = 0xFFFFFFFF
+INF32 = keys_lib.INF32           # flipped int32 "no edge" lane (INT32_MAX)
+REF_INF32 = 0xFFFFFFFF           # the same lane as the reference's uint32
 _PAD_SLOT = 0x7FFF0000   # compaction padding slot: never a live edge
 
 
@@ -171,7 +182,7 @@ def _compact(comp, src, dst, key, slot, *, cap: int):
 
 def _device_engine(graph: Graph, params: GHSParams, device: torch.device,
                    max_rounds: Optional[int]) -> tuple[ForestResult, BoruvkaStats]:
-    if np.any(graph.weight.view(np.uint32) == INF32):
+    if np.any(graph.weight.view(np.uint32) == REF_INF32):
         raise ValueError("weights collide with the INF sentinel")
     bundle = runtime.prepare_edges(graph, params.partitioner, chunk=8,
                                    device=device)
@@ -263,6 +274,186 @@ def _device_engine(graph: Graph, params: GHSParams, device: torch.device,
     return res, stats
 
 
+# ---------------------------------------------------------------------------
+# Legacy host-driven loop (round_loop="host"): per-round syncs + host-side
+# compaction.  The before/after baseline of the device loop.
+# ---------------------------------------------------------------------------
+
+def _pad_pow2(arrs, multiple: int, fill_vals):
+    """Pad to the next power-of-two multiple of ``multiple``.
+
+    src/dst are filled with PAD_VERTEX (clamped gathers make padding edges
+    self-loops), weight bits and edge ids with their INF sentinel.
+    """
+    m = arrs[0].shape[0]
+    target = multiple
+    while target < m:
+        target *= 2
+    pad = target - m
+    return [
+        np.concatenate([a, np.full(pad, f, a.dtype)]) if pad else a
+        for a, f in zip(arrs, fill_vals)
+    ]
+
+
+def _host_lanes(graph: Graph):
+    """The host loop's edge arrays in canonical order: int32 endpoints, and
+    the weight bits and edge ids as the reference's uint32 lanes."""
+    return (graph.src.astype(np.int32), graph.dst.astype(np.int32),
+            graph.weight.view(np.uint32).copy(),
+            np.arange(graph.num_edges, dtype=np.uint32))
+
+
+def _upload(arrs, chunk: int, device: torch.device) -> list:
+    """The host loop's upload: ``(src, dst, wbits, eid)`` (numpy; the last
+    two uint32) padded to a power-of-two multiple of ``chunk``, on
+    ``device``, with the uint32 lanes as flipped int32."""
+    s, d, w, e = _pad_pow2(arrs, chunk,
+                           [PAD_VERTEX, PAD_VERTEX, REF_INF32, REF_INF32])
+    return [torch.from_numpy(a).to(device) for a in
+            (s, d, keys_lib.from_reference32(w), keys_lib.from_reference32(e))]
+
+
+def _election_lanes(comp, src, dst, wbits, *, sort: bool):
+    """The lanes a round elects over: endpoint labels ``cs``/``cd``, the
+    ``alive`` mask, the weight lanes ``wb`` (INF where dead) and, with
+    ``sort``, one stable sorting permutation per endpoint array (reused by
+    both election phases; else None)."""
+    cs = _take(comp, src)
+    cd = _take(comp, dst)
+    alive = (cs != cd) & (wbits != INF32)
+    wb = torch.where(alive, wbits, INF32)
+    order_s = torch.sort(cs, stable=True).indices if sort else None
+    order_d = torch.sort(cd, stable=True).indices if sort else None
+    return cs, cd, alive, wb, order_s, order_d
+
+
+def _round_body(comp, src, dst, wbits, eid, *, use_pallas: bool = False):
+    """One two-phase round: elect MOE per fragment, hook, compress, relabel.
+
+    ``wbits``/``eid`` are flipped int32 lanes; returns the new labels, the
+    per-edge winner bitmap and the device ``done`` flag.  Per-segment mins
+    are scatter-mins, or with ``use_pallas`` a sort and the 32-bit scan
+    kernel.
+    """
+    n = comp.shape[0]
+
+    def segmin(seg, val, order):
+        return segops.segment_min(val, seg, num_segments=n,
+                                  use_pallas=use_pallas, order=order)
+
+    cs, cd, alive, wb, order_s, order_d = _election_lanes(
+        comp, src, dst, wbits, sort=use_pallas)
+
+    # Phase 1: best weight per fragment.
+    bw = torch.minimum(segmin(cs, wb, order_s), segmin(cd, wb, order_d))
+
+    # Phase 2: tie-break by unique edge id among weight-matching edges.
+    cand_s = torch.where(alive & (wb == bw[cs]), eid, INF32)
+    cand_d = torch.where(alive & (wb == bw[cd]), eid, INF32)
+    be = torch.minimum(segmin(cs, cand_s, order_s),
+                       segmin(cd, cand_d, order_d))
+
+    # Winners: the elected MOE edges (each fragment elects exactly one).
+    winners = alive & ((be[cs] == eid) | (be[cd] == eid))
+
+    # Merge: min-hooking + pointer doubling.
+    parent = union_find.hook_min(n, torch.maximum(cs, cd),
+                                 torch.minimum(cs, cd), winners)
+    parent = union_find.pointer_double(parent)
+    new_comp = parent[comp]
+
+    done = (bw == INF32).all()
+    return new_comp, winners, done
+
+
+def _host_engine(graph: Graph, params: GHSParams, device: torch.device,
+                 max_rounds: Optional[int]) -> tuple[ForestResult, BoruvkaStats]:
+    n, m = graph.num_vertices, graph.num_edges
+    if n == 0:
+        raise ValueError("the host loop needs a graph with vertices")
+    chunk = 8
+
+    src, dst, wbits, eid = _host_lanes(graph)
+    if np.any(wbits == REF_INF32):
+        raise ValueError("weights collide with the INF sentinel")
+
+    # The legacy loop tracks edges by canonical id end to end, so a
+    # partitioner only sets the upload order: its edges of shard 0, then of
+    # shard 1, ...  On one device every partitioner puts every edge in
+    # shard 0, so the order is canonical.
+    partition_lib.get_partitioner(params.partitioner)
+
+    round_fn = functools.partial(_round_body, use_pallas=params.use_pallas)
+    stats = BoruvkaStats()
+
+    def put_edges(arrs):
+        stats.host_syncs += 1          # host→device re-upload
+        stats.extra_syncs += 1
+        return _upload(arrs, chunk, device)
+
+    comp_dev = torch.arange(n, dtype=torch.int32, device=device)
+    src_d, dst_d, wb_d, eid_d = put_edges([src, dst, wbits, eid])
+
+    mask = np.zeros(m, dtype=bool)
+    history = []
+    cap = max_rounds or (n + 2)
+    # Host mirror of the active edge set (for compaction + winner mapping).
+    box = dict(active=np.arange(m, dtype=np.int64))
+
+    def dispatch(s):
+        comp_dev, src_d, dst_d, wb_d, eid_d, _ = s
+        comp_dev, winners, done = round_fn(comp_dev, src_d, dst_d, wb_d,
+                                           eid_d)
+        # The runtime fetches the done flag (the legacy loop's per-round
+        # sync); the winner readback below is an extra, metered one.
+        return ((comp_dev, src_d, dst_d, wb_d, eid_d, winners),
+                runtime.Readback(done))
+
+    def finish(s, done_v):
+        comp_dev, src_d, dst_d, wb_d, eid_d, winners = s
+        rnd = stats.rounds
+        stats.rounds += 1
+        stats.edges_scanned += int(src_d.shape[0])
+        history.append(len(box["active"]))
+        if done_v:
+            return s, True
+        stats.host_syncs += 1          # device→host: the winners' edge ids
+        stats.extra_syncs += 1
+        # The winners' ids are gathered on the device, so only they cross.
+        eids = keys_lib.to_reference32(torch.masked_select(eid_d, winners))
+        mask[eids[eids != REF_INF32].astype(np.int64)] = True
+        # Lazy compaction every check_frequency rounds.
+        if (
+            params.compaction == "pow2"
+            and (rnd + 1) % max(params.check_frequency, 1) == 0
+        ):
+            stats.host_syncs += 1      # device→host: fragment labels
+            stats.extra_syncs += 1
+            comp_h = comp_dev.cpu().numpy()
+            active = box["active"]
+            keep = comp_h[src[active]] != comp_h[dst[active]]
+            if not keep.all():
+                box["active"] = active = active[keep]
+                stats.compactions += 1
+                src_d, dst_d, wb_d, eid_d = put_edges(
+                    [src[active], dst[active], wbits[active], eid[active]])
+                s = (comp_dev, src_d, dst_d, wb_d, eid_d, winners)
+        return s, False
+
+    comp_dev = runtime.interval_loop(
+        (comp_dev, src_d, dst_d, wb_d, eid_d, None), dispatch, finish,
+        stats=stats, max_intervals=cap,
+        fail_msg="Borůvka engine failed to converge", overlap=False)[0]
+
+    comp_final = comp_dev.cpu().numpy()    # not counted, as the reference
+    ncomp = int(np.unique(comp_final).size)
+    res = runtime.forest_from_mask(graph, mask, num_components=ncomp)
+    res.check_consistent(n)
+    stats.active_history = tuple(history)
+    return res, stats
+
+
 def minimum_spanning_forest(
     graph,
     params: GHSParams = DEFAULT_PARAMS,
@@ -273,20 +464,19 @@ def minimum_spanning_forest(
     """Run the Borůvka engine on one device; returns the forest + stats.
 
     ``device=None`` runs on CUDA and raises when no card is present;
-    ``device="cpu"`` runs the kernels' plain PyTorch versions.  Only the
-    device-resident round loop on one device is ported.
+    ``device="cpu"`` runs the kernels' plain PyTorch versions.
+    ``params.round_loop`` picks the device-resident loop (the default) or
+    the legacy host loop; both run on one device.
     """
     dev = runtime.resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
             "mesh runs are not ported yet (ROADMAP queue 1, item 13: "
             "multi-GPU)")
-    if runtime.resolve_round_loop(params.round_loop) == "host":
-        raise NotImplementedError(
-            "round_loop='host' is not ported yet (ROADMAP queue 1, item 1: "
-            "legacy host loop _host_engine/_round_body + K4)")
     if runtime.resolve_collective(params.collective) == "compressed":
         raise NotImplementedError(
             "collective='compressed' is not ported yet (ROADMAP queue 1, "
             "item 13: multi-GPU)")
+    if runtime.resolve_round_loop(params.round_loop) == "host":
+        return _host_engine(runtime.as_graph(graph), params, dev, max_rounds)
     return _device_engine(runtime.as_graph(graph), params, dev, max_rounds)

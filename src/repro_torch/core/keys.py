@@ -21,6 +21,14 @@ port stores each such word ``u`` as the int64 whose bits are
 Real keys lie below ``2**63`` because weights are non-negative, so they are
 the negative stored words.  :func:`from_reference` / :func:`to_reference`
 convert numpy ``uint64`` keys of the reference to and from this form.
+
+The legacy host loop elects over single uint32 lanes (weight bits, then
+edge ids), and PyTorch has no usable uint32 ``min`` or scatter-min on the
+CPU either.  Each such lane is carried the same way, as the int32 whose
+bits are ``v ^ (1 << 31)``: signed order equals the reference's unsigned
+order, and its all-ones identity ``0xFFFFFFFF`` becomes ``INT32_MAX``
+(:data:`INF32`).  :func:`from_reference32` / :func:`to_reference32`
+convert at the boundary.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import torch
 SIGN = -(1 << 63)                  # int64 with only the top bit set
 INF_KEY = (1 << 63) - 1            # flipped all-ones: identity of min
 LANE_MASK = 0xFFFFFFFF
+SIGN32 = -(1 << 31)                # int32 with only the top bit set
+INF32 = (1 << 31) - 1              # flipped 0xFFFFFFFF: identity of min
 
 # splitmix64 constants (the hashed partitioner's finalizer).
 SPLITMIX_GAMMA = np.uint64(0x9E3779B97F4A7C15)
@@ -59,6 +69,20 @@ def to_reference(key) -> np.ndarray:
         key = key.detach().cpu().numpy()
     s = np.asarray(key, dtype=np.int64)
     return s.view(np.uint64) ^ np.uint64(1 << 63)
+
+
+def from_reference32(val) -> np.ndarray:
+    """Reference uint32 lanes -> the port's sign-flipped int32 lanes."""
+    u = np.asarray(val, dtype=np.uint32)
+    return (u ^ np.uint32(1 << 31)).view(np.int32)
+
+
+def to_reference32(val) -> np.ndarray:
+    """The port's int32 lanes (numpy or tensor) -> reference uint32 lanes."""
+    if isinstance(val, torch.Tensor):
+        val = val.detach().cpu().numpy()
+    s = np.asarray(val, dtype=np.int32)
+    return s.view(np.uint32) ^ np.uint32(1 << 31)
 
 
 def pack_keys_np(weight: np.ndarray, edge_id: np.ndarray) -> np.ndarray:

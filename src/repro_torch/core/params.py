@@ -14,6 +14,11 @@ class GHSParams:
     ``partitioner``, ``round_loop``, ``collective``, ``interval_pipeline``,
     ``round_kernel`` and ``use_pallas``:
 
+    * ``round_loop="host"`` — the legacy host loop; it ignores
+      ``round_kernel`` and ``interval_pipeline``, and with
+      ``use_pallas=True`` its elections run the hand-written CUDA 32-bit
+      segmented min-scan (the port of ``segmented_min_scan``).
+
     * ``round_kernel="xla"`` — per-edge round body; with ``use_pallas=True``
       its election runs the hand-written CUDA segmented pair-lex min-scan
       (the port of ``segmented_min2_scan``), otherwise a scatter-min.
@@ -42,7 +47,7 @@ class GHSParams:
     compaction: str = "pow2"          # 'none' | 'pow2' lazy edge compaction
     use_pallas: bool = False          # hand-written CUDA kernels (see above)
     partitioner: str = "block"        # 'block' | 'hashed' | 'balanced'
-    round_loop: str = "device"        # 'device' (ported) | 'host' (not yet)
+    round_loop: str = "device"        # 'device' | 'host' (legacy loop)
     collective: str = "pmin"          # 'pmin' | 'compressed' (not yet)
     interval_pipeline: int = 1        # 1 double-buffers intervals, 0 not
     round_kernel: str = "xla"         # 'xla' | 'pallas' round body

@@ -18,6 +18,12 @@ KERNELS = {
     "pointer_jump": (
         "src/repro_torch/kernels/csrc/pointer_jump.cu",
         "src/repro/kernels/spmv_minplus/spmv_minplus.py:153"),
+    "segmented_min_scan": (
+        "src/repro_torch/kernels/csrc/segscan.cu",
+        "src/repro/kernels/segment_min/segment_min.py:136"),
+    "hash_lookup": (
+        "src/repro_torch/kernels/csrc/edge_hash.cu",
+        "src/repro/kernels/edge_hash/edge_hash.py:58"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

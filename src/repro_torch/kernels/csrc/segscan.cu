@@ -1,22 +1,28 @@
-// Segmented pair-lex min-scan over sorted segments, for sm_90a.
+// Segmented min-scans over sorted segments, for sm_90a.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   * kernels/segment_min/segment_min.py::segmented_min2_scan (_scan2_kernel)
+//     — pair-lex over (hi, lo) uint32 lanes, here one int64 word;
 //   * kernels/spmv_minplus/spmv_minplus.py::masked_minplus_scan
 //     (_minplus_kernel) — the same scan with the Borůvka liveness mask
-//     applied as the lanes are loaded (MASKED = true).
+//     applied as the lanes are loaded (MASKED = true);
+//   * kernels/segment_min/segment_min.py::segmented_min_scan (_scan_kernel)
+//     — the single-lane uint32 scan, here one int32 word (V = int).
 //
-// Inputs: seg int32 (M,) sorted ascending, key int64 (M,), and for the
-// masked scan oth int32 (M,).  Output: int64 (M,), the inclusive segmented
-// min of key along each run of equal seg; the run ends hold each segment's
-// min.  A key is the reference's packed (hi, lo) uint32 pair stored as one
-// int64 word with its top bit flipped, so signed comparison of the words
-// is exactly the pair-lex order of the lanes, and INF (all ones) is
-// INT64_MAX.  Masked lanes (seg == oth, or key == INF) join as INF.
+// Inputs: seg int32 (M,) sorted ascending, the values (M,), and for the
+// masked scan oth int32 (M,).  Output (M,) of the value type: the
+// inclusive segmented min of the values along each run of equal seg; the
+// run ends hold each segment's min.  A value is the reference's unsigned
+// word stored with its top bit flipped — the packed (hi, lo) uint32 pair as
+// one int64, or a single uint32 lane as one int32 — so signed comparison
+// of the stored words is exactly the reference's unsigned order, and INF
+// (all ones) is INT64_MAX or INT32_MAX.  Masked lanes (seg == oth, or
+// key == INF) join as INF.
 //
-// Bound: bytes.  Each lane reads 12 bytes (16 masked) and writes 8; the
-// work is a few integer compares per lane, far below what the card can
-// issue in the time its memory takes to move the bytes.
+// Bound: bytes.  Each lane reads 12 bytes (16 masked) and writes 8 for the
+// 64-bit scans; the 32-bit scan reads 8 bytes and writes 4.  The work is a
+// few integer compares per lane, far below what the card can issue in the
+// time its memory takes to move the bytes.
 //
 // Design.  The Pallas kernels carry the running (seg, min) from one tile
 // to the next in SMEM, which relies on the TPU grid running its tiles in
@@ -33,7 +39,9 @@
 //      only lanes a carry can reach when segments are sorted.
 // The combine "keep the earlier run's min if it has the same seg" is
 // associative on sorted segments, so every grouping of the work gives the
-// same words as the sequential scan, bit for bit.
+// same words as the sequential scan, bit for bit.  The three passes are
+// templates over the value type: the 32-bit scan is the same design on
+// 4-byte words, not the 64-bit scan on widened data.
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,7 +50,6 @@ constexpr int THREADS = 256;
 constexpr int ITEMS = 8;
 constexpr int TILE = THREADS * ITEMS;
 constexpr int CARRY_THREADS = 1024;
-constexpr long long INF = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int SENTINEL_SEG = -2;   // identity run; never a real segment
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -51,21 +58,33 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 __device__ __forceinline__ int pidx(int j) { return j + (j >> 3); }
 constexpr int TILE_PADDED = TILE + TILE / 8;
 
-struct Run {
-  long long val;
+// The identity of min for each stored value type (flipped all ones).
+template <typename V> struct Inf;
+template <> struct Inf<long long> {
+  static constexpr long long value = 0x7FFFFFFFFFFFFFFFLL;
+};
+template <> struct Inf<int> {
+  static constexpr int value = 0x7FFFFFFF;
+};
+
+template <typename V>
+struct RunT {
+  V val;
   int seg;
 };
 
 // a precedes b: b keeps its seg, and takes a's min when a is the same run.
-__device__ __forceinline__ Run pick(Run a, Run b) {
+template <typename V>
+__device__ __forceinline__ RunT<V> pick(RunT<V> a, RunT<V> b) {
   if (a.seg == b.seg && a.val < b.val) b.val = a.val;
   return b;
 }
 
-__device__ __forceinline__ Run warp_inclusive(Run r, int lane) {
+template <typename V>
+__device__ __forceinline__ RunT<V> warp_inclusive(RunT<V> r, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    Run o;
+    RunT<V> o;
     o.seg = __shfl_up_sync(FULL, r.seg, off);
     o.val = __shfl_up_sync(FULL, r.val, off);
     if (lane >= off) r = pick(o, r);
@@ -76,8 +95,11 @@ __device__ __forceinline__ Run warp_inclusive(Run r, int lane) {
 // Block-wide scan of one Run per thread.  Returns the combination of all
 // earlier threads' runs (thread 0 gets the identity, an INF run) and sets
 // *total to the block's inclusive run.
-template <int NT>
-__device__ Run block_exclusive(Run agg, Run* warp_runs, Run* total) {
+template <int NT, typename V>
+__device__ RunT<V> block_exclusive(RunT<V> agg, RunT<V>* warp_runs,
+                                   RunT<V>* total) {
+  using Run = RunT<V>;
+  constexpr V INF = Inf<V>::value;
   constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -104,14 +126,16 @@ __device__ Run block_exclusive(Run agg, Run* warp_runs, Run* total) {
   return excl;
 }
 
-template <bool MASKED>
+template <typename V, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 tile_scan(const int* __restrict__ seg, const int* __restrict__ oth,
-          const long long* __restrict__ key, long long* __restrict__ out,
-          int* __restrict__ tile_meta, long long* __restrict__ tile_last_val,
+          const V* __restrict__ key, V* __restrict__ out,
+          int* __restrict__ tile_meta, V* __restrict__ tile_last_val,
           long long n, int ntiles) {
+  using Run = RunT<V>;
+  constexpr V INF = Inf<V>::value;
   __shared__ int s_seg[TILE_PADDED];
-  __shared__ long long s_val[TILE_PADDED];
+  __shared__ V s_val[TILE_PADDED];
   __shared__ Run warp_runs[THREADS / 32];
   __shared__ int first_len;
 
@@ -121,7 +145,7 @@ tile_scan(const int* __restrict__ seg, const int* __restrict__ oth,
   if (threadIdx.x == 0) first_len = valid;
   for (int j = threadIdx.x; j < TILE; j += THREADS) {
     int s = SENTINEL_SEG;   // lanes past the end follow every real lane,
-    long long v = INF;      // so the causal scan never carries them back
+    V v = INF;              // so the causal scan never carries them back
     if (j < valid) {
       s = seg[base + j];
       v = key[base + j];
@@ -134,7 +158,7 @@ tile_scan(const int* __restrict__ seg, const int* __restrict__ oth,
 
   const int t0 = threadIdx.x * ITEMS;
   int s[ITEMS];
-  long long v[ITEMS];
+  V v[ITEMS];
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     s[i] = s_seg[pidx(t0 + i)];
@@ -154,7 +178,8 @@ tile_scan(const int* __restrict__ seg, const int* __restrict__ oth,
 
   Run total;
   const Run excl =
-      block_exclusive<THREADS>(Run{v[ITEMS - 1], s[ITEMS - 1]}, warp_runs, &total);
+      block_exclusive<THREADS, V>(Run{v[ITEMS - 1], s[ITEMS - 1]}, warp_runs,
+                                  &total);
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i)
     if (s[i] == excl.seg && excl.val < v[i]) v[i] = excl.val;
@@ -171,11 +196,14 @@ tile_scan(const int* __restrict__ seg, const int* __restrict__ oth,
   }
 }
 
+template <typename V>
 __global__ void __launch_bounds__(CARRY_THREADS)
-carry_scan(int* __restrict__ tile_meta, long long* __restrict__ tile_last_val,
+carry_scan(int* __restrict__ tile_meta, V* __restrict__ tile_last_val,
            int ntiles) {
   // Reads the tiles' last (seg, min) and overwrites them in place with
   // each tile's carry-in (the scan value just before the tile).
+  using Run = RunT<V>;
+  constexpr V INF = Inf<V>::value;
   __shared__ Run warp_runs[CARRY_THREADS / 32];
   Run run{INF, SENTINEL_SEG};
   for (int c0 = 0; c0 < ntiles; c0 += CARRY_THREADS) {
@@ -183,7 +211,8 @@ carry_scan(int* __restrict__ tile_meta, long long* __restrict__ tile_last_val,
     Run agg{INF, SENTINEL_SEG};
     if (b < ntiles) agg = Run{tile_last_val[b], tile_meta[b]};
     Run total;
-    const Run excl = block_exclusive<CARRY_THREADS>(agg, warp_runs, &total);
+    const Run excl =
+        block_exclusive<CARRY_THREADS, V>(agg, warp_runs, &total);
     const Run carry = threadIdx.x == 0 ? run : pick(run, excl);
     if (b < ntiles) {
       tile_meta[b] = carry.seg;
@@ -193,18 +222,39 @@ carry_scan(int* __restrict__ tile_meta, long long* __restrict__ tile_last_val,
   }
 }
 
+template <typename V>
 __global__ void __launch_bounds__(THREADS)
-tile_fixup(const int* __restrict__ tile_meta,
-           const long long* __restrict__ carry_val, long long* __restrict__ out,
-           int ntiles) {
+tile_fixup(const int* __restrict__ tile_meta, const V* __restrict__ carry_val,
+           V* __restrict__ out, int ntiles) {
   const int b = blockIdx.x;
   const int cseg = tile_meta[b];
   if (cseg != tile_meta[ntiles + b]) return;
-  const long long cv = carry_val[b];
+  const V cv = carry_val[b];
   const int len = tile_meta[2 * ntiles + b];
   const long long base = (long long)b * TILE;
   for (int j = threadIdx.x; j < len; j += THREADS)
     if (cv < out[base + j]) out[base + j] = cv;
+}
+
+// Launch the three passes on one stream; returns the first CUDA error.
+template <typename V, bool MASKED>
+int launch(const int* seg, const int* oth, const V* key, V* out,
+           int* tile_meta, V* tile_last_val, long long n, cudaStream_t st) {
+  const int ntiles = (int)((n + TILE - 1) / TILE);
+  tile_scan<V, MASKED><<<ntiles, THREADS, 0, st>>>(seg, oth, key, out,
+                                                   tile_meta, tile_last_val,
+                                                   n, ntiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (ntiles > 1) {
+    carry_scan<V><<<1, CARRY_THREADS, 0, st>>>(tile_meta, tile_last_val,
+                                               ntiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    tile_fixup<V><<<ntiles, THREADS, 0, st>>>(tile_meta, tile_last_val, out,
+                                              ntiles);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -220,23 +270,20 @@ int segscan_min(const int* seg, const int* oth, const long long* key,
                 long long n, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ntiles = (int)((n + TILE - 1) / TILE);
-  if (oth != nullptr) {
-    tile_scan<true><<<ntiles, THREADS, 0, st>>>(seg, oth, key, out, tile_meta,
-                                                tile_last_val, n, ntiles);
-  } else {
-    tile_scan<false><<<ntiles, THREADS, 0, st>>>(seg, oth, key, out, tile_meta,
-                                                 tile_last_val, n, ntiles);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (ntiles > 1) {
-    carry_scan<<<1, CARRY_THREADS, 0, st>>>(tile_meta, tile_last_val, ntiles);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    tile_fixup<<<ntiles, THREADS, 0, st>>>(tile_meta, tile_last_val, out, ntiles);
-  }
-  return (int)cudaGetLastError();
+  if (oth != nullptr)
+    return launch<long long, true>(seg, oth, key, out, tile_meta,
+                                   tile_last_val, n, st);
+  return launch<long long, false>(seg, oth, key, out, tile_meta,
+                                  tile_last_val, n, st);
+}
+
+// The single-lane scan over flipped int32 words.  tile_meta: int32 scratch
+// of 3 * ntiles; tile_last_val: int32 scratch of ntiles.
+int segscan_min32(const int* seg, const int* val, int* out, int* tile_meta,
+                  int* tile_last_val, long long n, void* stream) {
+  if (n <= 0) return 0;
+  return launch<int, false>(seg, nullptr, val, out, tile_meta, tile_last_val,
+                            n, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -6,6 +6,19 @@ import torch
 from repro_torch.core import keys as keys_lib
 
 INF_KEY = keys_lib.INF_KEY
+INF32 = keys_lib.INF32
+
+
+def segment_min(val: torch.Tensor, seg: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment min of flipped int32 lanes by scatter-min (segments need
+    not be sorted; ids outside ``[0, num_segments)`` are dropped)."""
+    out = torch.full((num_segments + 1,), INF32, dtype=torch.int32,
+                     device=val.device)
+    seg = seg.to(torch.int64)
+    idx = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+    out.scatter_reduce_(0, idx, val, "amin")
+    return out[:num_segments]
 
 
 def segment_min64(key: torch.Tensor, seg: torch.Tensor,
@@ -32,3 +45,15 @@ def segmented_min2_scan(seg, key):
         cs = s
         out.append(cv)
     return torch.tensor(out, dtype=torch.int64)
+
+
+def segmented_min_scan(seg, val):
+    """Sequential inclusive segmented min-scan oracle over flipped int32
+    lanes (sorted segments), with the reference's carry identity."""
+    cs, cv = -2, INF32
+    out = []
+    for s, v in zip(seg.tolist(), val.tolist()):
+        cv = min(cv, v) if s == cs else v
+        cs = s
+        out.append(cv)
+    return torch.tensor(out, dtype=torch.int32)

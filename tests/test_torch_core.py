@@ -197,7 +197,8 @@ def test_knob_validation_and_unported_paths():
         with pytest.raises(ValueError):
             mst_api.minimum_spanning_forest(g, params=GHSParams(**bad),
                                             device="cpu")
-    for unported in (dict(round_loop="host"), dict(collective="compressed")):
+    for unported in (dict(collective="compressed"),
+                     dict(collective="compressed", round_loop="host")):
         with pytest.raises(NotImplementedError):
             mst_api.minimum_spanning_forest(g, params=GHSParams(**unported),
                                             device="cpu")
@@ -206,8 +207,11 @@ def test_knob_validation_and_unported_paths():
             mst_api.minimum_spanning_forest(g, method=method, device="cpu")
     with pytest.raises(ValueError):
         mst_api.minimum_spanning_forest(g, method="nope", device="cpu")
-    with pytest.raises(NotImplementedError):
-        mst_api.minimum_spanning_forest(g, device="cpu", mesh=object())
+    for loop in ("device", "host"):
+        with pytest.raises(NotImplementedError):
+            mst_api.minimum_spanning_forest(
+                g, params=GHSParams(round_loop=loop), device="cpu",
+                mesh=object())
     with pytest.raises(NotImplementedError):
         mst_api.minimum_spanning_forest((g.src, g.dst), device="cpu")
 
@@ -226,13 +230,20 @@ def test_port_imports_neither_jax_nor_repro():
         "from repro_torch.kernels.segment_min import ops as a\n"
         "from repro_torch.kernels.spmv_minplus import ops as b\n"
         "from repro_torch.kernels import build\n"
+        "from repro_torch.kernels.edge_hash import ops as c\n"
+        "from repro_torch.core import ghs_state\n"
         "from repro_torch.core.params import GHSParams\n"
+        "import numpy as np\n"
         "g = generators.rmat(6, seed=0)\n"
-        "for rk in ('xla', 'pallas'):\n"
+        "for kw in (dict(round_kernel='xla'), dict(round_kernel='pallas'),\n"
+        "           dict(round_loop='host')):\n"
         "    res, _ = mst_api.minimum_spanning_forest(\n"
-        "        g, params=GHSParams(round_kernel=rk, use_pallas=True),\n"
-        "        device='cpu')\n"
+        "        g, params=GHSParams(use_pallas=True, **kw), device='cpu')\n"
         "    assert (res.edge_mask == kruskal_ref.kruskal(g).edge_mask).all()\n"
+        "pos = np.arange(g.num_edges, dtype=np.int32)\n"
+        "t = c.build_table(g.src, g.dst, pos, 4 * g.num_edges + 1)\n"
+        "got = c.lookup(t, g.src, g.dst, device='cpu')\n"
+        "assert (got.numpy() == pos).all()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -243,3 +254,22 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert "isolated" in out.stdout
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    """No module of the port and not ``chip_smoke.py`` names ``jax`` or
+    ``repro`` in an import statement, at any depth of the file."""
+    import ast
+    pkg = Path(repro_torch.__file__).resolve().parent
+    files = sorted(pkg.rglob("*.py")) + [pkg.parents[1] / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    f"{path.name} imports {name}"
