@@ -32,14 +32,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. a small RMAT scale-10 sweep over every knob the port exposes, both round
    loops, each forest held against Kruskal and against the same solve on
    the CPU;
-6. one ``{"kernels": [...]}`` line, the card line, and last the result
+6. the LM serving path, Qwen1.5-0.5B at its full config in bf16:
+   a. the attention kernels (flash attention for prefill, decode attention
+      for each decode step) against their plain versions, within the
+      tolerances stated below, in bf16 and float32: on the inputs of every
+      layer of the served model's prefill and first decode step, on
+      Qwen2.5-14B's GQA shapes (40 query heads over 8 KV heads, hd 128),
+      and on ragged lengths (S = 77 and 1000, non-causal, cache lengths 0,
+      1 and S); each timed beside its bound, its plain version and
+      ``scaled_dot_product_attention``; and one profiler window each over a
+      prefill and over decode steps;
+   b. ``serve_lm.main`` at batch 8, prompt 1024 and 512 generated tokens,
+      its decode loop under sync debug mode "error", with the kernels'
+      launch counts checked (one flash attention per layer, one decode
+      attention per layer and step) and every logit finite; then
+      Qwen2.5-14B at full width with its depth cut to 8 layers, batch 4,
+      prompt 1024, 32 tokens;
+   c. two layers at Qwen1.5-0.5B's width in float32, on the card with the
+      kernels and on the CPU with the plain versions, from the same
+      weights, teacher-forced, logits held within ``PARITY_TOL``;
+7. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
-profiler's table to ``chip_smoke_out/chip_smoke_profile.txt``.
+profilers' tables to ``chip_smoke_out/chip_smoke_profile*.txt``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import statistics
@@ -57,6 +78,27 @@ SEED = 20
 SOLVE_RUNS = 5
 HOST_SOLVE_RUNS = 3
 MISS_SHIFT = 7919               # receiver shift of the lookup's miss queries
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+LM_ARCH = "qwen1.5-0.5b"        # the served model, full config, bf16
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 512
+LM_SEED = 0
+GQA_ARCH = "qwen2.5-14b"        # full width, depth cut to GQA_LAYERS
+GQA_LAYERS, GQA_BATCH, GQA_GEN = 8, 4, 32
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 2, 128, 8
+PROFILE_DECODE_STEPS = 32
+# Attention kernel against its plain version on the card: both compute in
+# float32 from the same inputs and differ only in the order of their sums.
+# float32: 1e-4 times the largest output (when above 1), a few hundred ulps
+# at outputs of order 1.  bfloat16: the two float32 results may round to
+# neighbouring bf16 values, so two bf16 ulps of each output (2**-6 of it)
+# plus 1e-5 for outputs near zero.
+ATTN_F32_TOL = 1e-4
+ATTN_BF16_REL = 2.0 ** -6
+# The card (kernels) against the CPU (plain versions), float32 logits of two
+# layers at Qwen1.5-0.5B's width: the CPU parity tests' logits tolerance.
+# Sums of depth up to 2816 taken in another order on each side leave errors
+# of order 1e-5 at logits of order 1.
+PARITY_TOL = 1e-4
 
 
 def _log(*parts) -> None:
@@ -94,9 +136,10 @@ def _max_abs_err(torch, got, want) -> int:
                zip(got[diff].tolist(), want[diff].tolist()))
 
 
-def _bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
+def _bound_ms(nbytes: int, nops: int,
+              ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -433,23 +476,24 @@ def phase_profile(torch, graph, record) -> None:
     record["staging_s"] = staging
     _log(f"host staging (prepare_edges): median "
          f"{statistics.median(staging):.4f} s over 3 runs")
+    from repro_torch.core import mst_api
+    params = GHSParams(round_kernel="pallas", use_pallas=True)
     record["profile"] = _profile_window(
-        torch, graph, GHSParams(round_kernel="pallas", use_pallas=True),
-        "chip_smoke_profile.txt")
+        torch, lambda: mst_api.minimum_spanning_forest(graph, params=params),
+        "device loop", "chip_smoke_profile.txt")
 
 
-def _profile_window(torch, graph, params, table_name) -> dict:
-    """One profiler window over one solve: device busy time and idle
+def _profile_window(torch, run, label, table_name) -> dict:
+    """One profiler window over ``run()``: device busy time and idle
     share, the device ops that took longest, and the host's time blocked
     in synchronizing CUDA calls.  Writes the profiler's table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import mst_api
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mst_api.minimum_spanning_forest(graph, params=params)
+        run()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     events = prof.key_averages()
@@ -462,12 +506,13 @@ def _profile_window(torch, graph, params, table_name) -> dict:
     on_device = [e for e in events
                  if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy_us = sum(dev_us(e) for e in on_device)
+    n_ops = sum(e.count for e in on_device)
     top = sorted(on_device, key=dev_us, reverse=True)[:10]
     idle = 1.0 - busy_us / (window * 1e6) if busy_us else None
     waits = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
              if "Synchronize" in e.key]
-    _log(f"profile ({params.round_loop} loop): window {window:.4f} s, device "
-         f"busy {busy_us / 1e3:.3f} ms, idle share "
+    _log(f"profile ({label}): window {window:.4f} s, {n_ops} device ops, "
+         f"device busy {busy_us / 1e3:.3f} ms, idle share "
          f"{'not measured' if idle is None else f'{idle:.4f}'}")
     for e in top:
         _log(f"  device op {e.key[:60]!r}: {dev_us(e) / 1e3:.3f} ms "
@@ -477,7 +522,8 @@ def _profile_window(torch, graph, params, table_name) -> dict:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / table_name).write_text(
         events.table(sort_by="self_cpu_time_total", row_limit=60))
-    return dict(window_s=window, device_busy_ms=busy_us / 1e3,
+    return dict(window_s=window, device_ops=n_ops,
+                device_busy_ms=busy_us / 1e3,
                 idle_share=idle, host_waits=waits,
                 top=[(e.key, dev_us(e) / 1e3, e.count) for e in top])
 
@@ -529,9 +575,10 @@ def phase_host_solves(torch, graph, oracle, record) -> int:
     for rk, rec in record["solves"].items():
         _log(f"device loop rmat-{SCALE} round_kernel={rk} (phase 3, this "
              f"call): median wall {rec['median_s']:.4f} s")
+    params = GHSParams(round_loop="host", use_pallas=True)
     record["host_profile"] = _profile_window(
-        torch, graph, GHSParams(round_loop="host", use_pallas=True),
-        "chip_smoke_profile_host.txt")
+        torch, lambda: mst_api.minimum_spanning_forest(graph, params=params),
+        "host loop", "chip_smoke_profile_host.txt")
     return launches
 
 
@@ -609,6 +656,345 @@ def phase_sweep(torch, record) -> None:
     record["sweep_ok"] = n_ok
 
 
+@contextlib.contextmanager
+def _calls(module, name, store: list):
+    """Record the positional and keyword arguments of every call of
+    ``module.name`` made inside the block in ``store``; restore it after."""
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        store.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _attn_tol(torch, want):
+    if want.dtype == torch.bfloat16:
+        return ATTN_BF16_REL * want.float().abs() + 1e-5
+    return ATTN_F32_TOL * max(1.0, float(want.float().abs().max()))
+
+
+def _attn_check(torch, name, kernel, plain, cname, args, kwargs) -> float:
+    """One case of an attention kernel against its plain version; raises
+    past the tolerance.  Returns the max abs error."""
+    got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name} [{cname}]: {got.dtype} {tuple(got.shape)}"
+                             f" != {want.dtype} {tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= _attn_tol(torch, want)).all())
+    _log(f"kernel {name} [{cname}, {args[0].dtype}, q {tuple(args[0].shape)}, "
+         f"k {tuple(args[1].shape)}] max_abs_err={err:.3e} within_tol={ok}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"{cname} (max abs err {err})")
+    return err
+
+
+def _randn(torch, gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def _flash_cost(q, k, v):
+    """(bytes, operations) of causal attention: q, k, v and o each once;
+    2·B·Hq·S²·D operations (the causal half of the two products)."""
+    b, hq, s, d = q.shape
+    es = q.element_size()
+    return es * (2 * q.numel() + 2 * k.numel()), 2 * b * hq * s * s * d
+
+
+def _decode_cost(q, k, v, length):
+    """(bytes, operations) of decode attention: q, o and the lengths once,
+    and the K and V rows up to each length (all S for a length <= 0)."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    rows = sum(s if n <= 0 else min(n, s) for n in length.tolist())
+    es = q.element_size()
+    return (es * (2 * q.numel() + 2 * hkv * rows * d) + 4 * b,
+            4 * hq * rows * d)
+
+
+def _attn_timing(torch, kernel, plain, library, calls, cost) -> dict:
+    """Kernel, plain and library times over ``calls`` (argument tuples,
+    taken in turn, as the path's layers take them), and the bound."""
+    def cycled(fn):
+        it = itertools.cycle(calls)
+        return lambda: fn(*next(it))
+    ms = _time_ms(torch, cycled(kernel), 2 * len(calls))
+    plain_ms = _time_ms(torch, cycled(plain), 3, warmup=1)
+    library_ms = _time_ms(torch, cycled(library), 2 * len(calls))
+    nbytes, nops = cost(*calls[0])
+    rate = BF16_OPS_PER_S if calls[0][0].dtype == torch.bfloat16 \
+        else INT_OPS_PER_S
+    bound_ms, bound_by = _bound_ms(nbytes, nops, rate)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=nops)
+
+
+def phase_attention(torch, dev, record) -> list:
+    """Phase 6a: the attention kernels against their plain versions, with
+    inputs captured from the served model (its prefill and its first
+    decode step, every layer), on the GQA shapes of Qwen2.5-14B and on
+    ragged lengths; timed beside their bounds, plain versions and
+    ``scaled_dot_product_attention``; and one profiler window each over a
+    prefill and over decode steps of the served model."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models import api, transformer
+    from repro_torch.train.serve_step import pick
+    cfg = get_config(LM_ARCH)
+    # The served run's weights and prompts: serve_lm.serve draws them so.
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = api.get_model(cfg).init(gen, cfg)
+    tokens = api.synth_batch(LM_SEED, cfg, LM_BATCH, LM_PROMPT,
+                             device=dev)["tokens"]
+    max_len = LM_PROMPT + LM_GEN
+    flash_calls, decode_calls = [], []
+    with _calls(attn_ops, "attention", flash_calls), \
+            _calls(dec_ops, "decode_attention", decode_calls):
+        logits, cache = transformer.prefill(params, tokens, cfg,
+                                            max_len=max_len)
+        first = pick(logits)[:, None]
+        transformer.decode_step(params, cache, first, cfg)
+    torch.cuda.synchronize()
+    if len(flash_calls) != cfg.n_layers or len(decode_calls) != cfg.n_layers:
+        raise AssertionError("the served model did not call attention once "
+                             "per layer")
+    f_calls = [args for args, _ in flash_calls]
+    d_calls = [args for args, _ in decode_calls]
+
+    record["lm_profile_prefill"] = _profile_window(
+        torch, lambda: transformer.prefill(params, tokens, cfg,
+                                           max_len=max_len),
+        f"prefill {LM_ARCH} {LM_BATCH}x{LM_PROMPT}",
+        "chip_smoke_profile_prefill.txt")
+
+    def decode_steps():
+        state, nxt = cache, first
+        for _ in range(PROFILE_DECODE_STEPS):
+            out, state = transformer.decode_step(params, state, nxt, cfg)
+            nxt = pick(out)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_steps()
+    torch.cuda.synchronize()
+    record["lm_decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / \
+        PROFILE_DECODE_STEPS
+    _log(f"decode step, {LM_ARCH} batch {LM_BATCH}, no profiler: "
+         f"{record['lm_decode_step_ms']:.3f} ms (host clock, mean of "
+         f"{PROFILE_DECODE_STEPS})")
+    record["lm_profile_decode"] = _profile_window(
+        torch, decode_steps, f"{PROFILE_DECODE_STEPS} decode steps {LM_ARCH} "
+        f"batch {LM_BATCH}", "chip_smoke_profile_decode.txt")
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    q0, k0, v0 = f_calls[0]
+    flash_cases = [("served layer 0", (q0, k0, v0), {}),
+                   ("served layer 0", (q0.float(), k0.float(), v0.float()),
+                    {}),
+                   ("served layer 0, non-causal", (q0, k0, v0),
+                    dict(causal=False))]
+    for dt in (bf16, f32):
+        for b, hq, hkv, s, d in ((2, 16, 16, 77, 64), (2, 40, 8, 1000, 128),
+                                 (GQA_BATCH, 40, 8, LM_PROMPT, 128)):
+            qkv = (_randn(torch, g, (b, hq, s, d), dt),
+                   _randn(torch, g, (b, hkv, s, d), dt),
+                   _randn(torch, g, (b, hkv, s, d), dt))
+            for causal in (True, False):
+                flash_cases.append((f"S={s} group {hq // hkv} hd {d} "
+                                    f"causal={causal}", qkv,
+                                    dict(causal=causal)))
+    dq, dk, dv, dlen = d_calls[0]
+    decode_cases = [("served layer 0, first step", (dq, dk, dv, dlen), {}),
+                    ("served layer 0, first step",
+                     (dq.float(), dk.float(), dv.float(), dlen), {})]
+    for dt in (bf16, f32):
+        for b, hq, hkv, s, d in ((3, 16, 16, 77, 64), (3, 40, 8, 1000, 128),
+                                 (GQA_BATCH, 40, 8, LM_PROMPT + GQA_GEN,
+                                  128)):
+            lengths = [0, 1, s, 1 + s // 2][:b]
+            args = (_randn(torch, g, (b, hq, d), dt),
+                    _randn(torch, g, (b, hkv, s, d), dt),
+                    _randn(torch, g, (b, hkv, s, d), dt),
+                    torch.tensor(lengths, dtype=torch.int32, device=dev))
+            decode_cases.append((f"S={s} group {hq // hkv} hd {d} lengths "
+                                 f"{lengths}", args, {}))
+    errs = {}
+    for name, kernel, plain, cases in (
+            ("flash_attention", flash_attention, flash_attention_plain,
+             flash_cases),
+            ("decode_attention", decode_attention, decode_attention_plain,
+             decode_cases)):
+        errs[name] = [_attn_check(torch, name, kernel, plain, *c)
+                      for c in cases]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_decode(q, k, v, length):
+        n = LM_PROMPT + 1              # the first decode step's length
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :, :n], v[:, :, :n], enable_gqa=True)
+
+    # The 14B model's shapes, one input set for each of its cut layers.
+    gqa_flash = [(_randn(torch, g, (GQA_BATCH, 40, LM_PROMPT, 128), bf16),
+                  _randn(torch, g, (GQA_BATCH, 8, LM_PROMPT, 128), bf16),
+                  _randn(torch, g, (GQA_BATCH, 8, LM_PROMPT, 128), bf16))
+                 for _ in range(GQA_LAYERS)]
+    gqa_len = torch.full((GQA_BATCH,), LM_PROMPT + 1, dtype=torch.int32,
+                         device=dev)
+    gqa_decode = [(_randn(torch, g, (GQA_BATCH, 40, 128), bf16),
+                   _randn(torch, g, (GQA_BATCH, 8, LM_PROMPT + GQA_GEN, 128),
+                          bf16),
+                   _randn(torch, g, (GQA_BATCH, 8, LM_PROMPT + GQA_GEN, 128),
+                          bf16), gqa_len)
+                  for _ in range(GQA_LAYERS)]
+    rows = []
+    for name, kernel, plain, library, calls, gqa, cost in (
+            ("flash_attention", flash_attention, flash_attention_plain, sdpa,
+             f_calls, gqa_flash, _flash_cost),
+            ("decode_attention", decode_attention, decode_attention_plain,
+             sdpa_decode, d_calls, gqa_decode, _decode_cost)):
+        t = _attn_timing(torch, kernel, plain, library, calls, cost)
+        tg = _attn_timing(torch, kernel, plain, library, gqa, cost)
+        for label, r in (("served", t), ("qwen2.5-14b shapes", tg)):
+            _log(f"kernel {name} ({label}, bf16): {r['ms']:.4f} ms (bound "
+                 f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+                 f"scaled_dot_product_attention)")
+        source, replaces = KERNELS[name]
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=0, max_abs_err=errs[name][0], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            max_abs_err_all_cases=max(errs[name]), gqa_14b=tg))
+    record["attention_phase"] = dict(
+        rows=rows, flash_errs=errs["flash_attention"],
+        decode_errs=errs["decode_attention"])
+    return rows
+
+
+def _serve_run(torch, label, cfg, batch, gen, run) -> dict:
+    """One served run: launch counts read just after it (the counts set to
+    0 just before), every logit finite, the tokens in the vocabulary."""
+    from repro_torch import kernels
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = run()
+    counts = dict(kernels.LAUNCHES)
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (gen - 1)}
+    if any(counts[k] != want.get(k, 0) for k in counts):
+        raise AssertionError(f"{label}: launches {counts}, expected {want} "
+                             f"and no other kernel")
+    if not res.logits_finite:
+        raise AssertionError(f"{label}: a logit was not finite")
+    if tuple(res.seqs.shape) != (batch, gen) or not bool(
+            ((res.seqs >= 0) & (res.seqs < cfg.vocab)).all()):
+        raise AssertionError(f"{label}: tokens of shape "
+                             f"{tuple(res.seqs.shape)} or out of the vocab")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _log(f"serve {label}: batch {batch} prompt {LM_PROMPT} gen {gen}: "
+         f"prefill {res.prefill_s:.4f} s "
+         f"({batch * LM_PROMPT / res.prefill_s:.1f} tok/s), decode "
+         f"{res.decode_s:.4f} s ({res.decode_tokens_per_s:.1f} tok/s, "
+         f"{res.decode_s / max(gen - 1, 1) * 1e3:.3f} ms per step), "
+         f"launches {counts}, logits finite, peak memory {peak:.2f} GiB; "
+         f"first tokens {res.seqs[0, :8].tolist()}")
+    return dict(prefill_s=res.prefill_s, decode_s=res.decode_s,
+                decode_tokens_per_s=res.decode_tokens_per_s,
+                launches={k: counts[k] for k in want}, peak_gib=peak,
+                batch=batch, gen=gen, layers=cfg.n_layers)
+
+
+def phase_serve(torch, record) -> dict:
+    """Phase 6b: the served path, ``serve_lm.main`` at Qwen1.5-0.5B's full
+    config (its decode loop under sync debug mode "error"), then
+    ``serve_lm.serve`` on Qwen2.5-14B at full width, depth cut.  Returns
+    the 0.5B run's launch counts of the attention kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    served = _serve_run(
+        torch, LM_ARCH, get_config(LM_ARCH), LM_BATCH, LM_GEN,
+        lambda: serve_lm.main(["--arch", LM_ARCH, "--batch", str(LM_BATCH),
+                               "--prompt-len", str(LM_PROMPT), "--gen",
+                               str(LM_GEN), "--seed", str(LM_SEED)]))
+    cfg = dataclasses.replace(get_config(GQA_ARCH), n_layers=GQA_LAYERS)
+    gqa = _serve_run(
+        torch, f"{GQA_ARCH} at {GQA_LAYERS} layers", cfg, GQA_BATCH, GQA_GEN,
+        lambda: serve_lm.serve(cfg, batch=GQA_BATCH, prompt_len=LM_PROMPT,
+                               gen=GQA_GEN, seed=LM_SEED))
+    record["serve"] = {LM_ARCH: served, GQA_ARCH: gqa}
+    return served["launches"]
+
+
+def phase_parity(torch, dev, record) -> None:
+    """Phase 6c: Qwen1.5-0.5B's width at PARITY_LAYERS layers in float32,
+    on the card with the kernels and on the CPU with the plain versions,
+    from the same weights, teacher-forced on the CPU's greedy tokens."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.train.serve_step import pick
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=PARITY_LAYERS,
+                              compute_dtype="float32")
+    card = transformer.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                            cfg)
+    cpu = transformer.Transformer(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    tokens = api.synth_batch(LM_SEED, cfg, PARITY_BATCH, PARITY_PROMPT,
+                             device="cpu")["tokens"]
+    max_len = PARITY_PROMPT + PARITY_GEN
+    kernels.reset_launches()
+    want, cstate = transformer.prefill(cpu, tokens, cfg, max_len=max_len)
+    got, gstate = transformer.prefill(card, tokens.to(dev), cfg,
+                                      max_len=max_len)
+    errs, compared = [], 0
+    for step in range(PARITY_GEN):
+        if step:
+            want, cstate = transformer.decode_step(cpu, cstate, nxt, cfg)
+            got, gstate = transformer.decode_step(card, gstate, nxt.to(dev),
+                                                  cfg)
+        errs.append(float((got.cpu() - want).abs().max()))
+        top2 = want[:, -1].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > PARITY_TOL
+        nxt = pick(want)[:, None]
+        if not torch.equal(pick(got.cpu())[sure], nxt[sure, 0]):
+            raise AssertionError(f"parity step {step}: greedy tokens differ "
+                                 f"where the margin exceeds the tolerance")
+        compared += int(sure.sum())
+    counts = dict(kernels.LAUNCHES)
+    _log(f"parity (card kernels vs CPU plain, f32, {PARITY_LAYERS} layers of "
+         f"{LM_ARCH}, batch {PARITY_BATCH}, prompt {PARITY_PROMPT}, "
+         f"{PARITY_GEN} steps): max logit err per step "
+         f"{[f'{e:.3e}' for e in errs]}, tolerance {PARITY_TOL}, "
+         f"{compared} tokens compared, launches {counts}")
+    if max(errs) > PARITY_TOL:
+        raise AssertionError(f"card vs CPU logits differ by {max(errs)}")
+    if counts["flash_attention"] != PARITY_LAYERS or \
+            counts["decode_attention"] != PARITY_LAYERS * (PARITY_GEN - 1):
+        raise AssertionError(f"parity run launches {counts}")
+    record["parity"] = dict(errs=errs, tol=PARITY_TOL, compared=compared)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -661,6 +1047,13 @@ def main() -> int:
     del hash_inputs
     torch.cuda.empty_cache()
     phase_sweep(torch, record)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows += phase_attention(torch, dev, record)
+    torch.cuda.empty_cache()
+    launches.update(phase_serve(torch, record))
+    phase_parity(torch, dev, record)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

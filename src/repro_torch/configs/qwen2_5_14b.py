@@ -1,0 +1,18 @@
+"""Qwen2.5-14B — dense GQA, QKV bias [family source hf:Qwen/Qwen2.5-0.5B]."""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-14b", family="dense", n_layers=48, d_model=5120,
+        n_heads=40, n_kv_heads=8, d_ff=13824, vocab=152064, qkv_bias=True,
+        rope_theta=1e6,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-14b-smoke", family="dense", n_layers=2, d_model=80,
+        n_heads=5, n_kv_heads=1, d_ff=108, vocab=512, qkv_bias=True,
+        compute_dtype="float32",
+    )

@@ -24,6 +24,12 @@ KERNELS = {
     "hash_lookup": (
         "src/repro_torch/kernels/csrc/edge_hash.cu",
         "src/repro/kernels/edge_hash/edge_hash.py:58"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:65"),
+    "decode_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:58"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

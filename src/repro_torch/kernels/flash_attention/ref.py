@@ -1,0 +1,25 @@
+"""Plain version of flash attention: naive causal GQA attention, the
+(S, S) logits materialized, all arithmetic in float32."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0.  Returns
+    (B, Hq, S, D) in q's type."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    if scale is None:
+        scale = float(1.0 / np.sqrt(d))
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

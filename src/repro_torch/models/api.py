@@ -1,0 +1,67 @@
+"""Uniform model API: family -> (init, prefill, decode_step,
+make_decode_state), and ``synth_batch`` (random batches for smoke runs).
+
+Only the dense family is ported.  The JAX package's ``loss_fn`` field and
+``train_input_specs`` wait for training; the other families wait for their
+slices of ROADMAP queue 1, item 14, named in the error each raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import runtime
+from repro_torch.models import layers, transformer
+from repro_torch.models.config import ModelConfig
+
+# family -> the slice of ROADMAP queue 1, item 14 that brings it
+WAITING = {
+    "ssm": "item 14, slice 1 (RWKV6 and its WKV kernel K9)",
+    "hybrid": "item 14, slice 2 (Jamba: Mamba, its scan kernel K8, and MoE)",
+    "moe": "item 14, slice 2 (moe.py, with Jamba)",
+    "encdec": "item 14, slice 4 (the remaining families)",
+    "vlm": "item 14, slice 4 (the remaining families)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    init: Callable                  # (generator, cfg) -> model
+    prefill: Callable
+    decode_step: Callable
+    make_decode_state: Callable     # (cfg, batch, max_len, device) -> state
+
+
+def _transformer_state(cfg, batch, max_len, device=None):
+    return layers.make_cache(cfg, batch, max_len, device=device)
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    fam = cfg.family
+    if fam == "dense":
+        return ModelApi(transformer.init, transformer.prefill,
+                        transformer.decode_step, _transformer_state)
+    if fam in WAITING:
+        raise NotImplementedError(
+            f"{cfg.name}: the {fam} family is not ported yet (ROADMAP queue "
+            f"1, {WAITING[fam]})")
+    raise ValueError(fam)
+
+
+def synth_batch(rng_seed: int, cfg: ModelConfig, batch: int, seq: int, *,
+                device=None) -> dict:
+    """Random ``tokens`` (B, S) int32 and their next-token ``labels``, drawn
+    with numpy exactly as the JAX package draws them, so both packages see
+    the same tokens for one seed.  On the card unless ``device`` names
+    another.  The frontend embeddings of the VLM and encoder–decoder
+    families come with those families."""
+    dev = runtime.resolve_device(device)
+    rng = np.random.default_rng(rng_seed)
+    tokens = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    out: dict[str, Any] = dict(
+        tokens=torch.from_numpy(tokens).to(dev),
+        labels=torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
+    return out

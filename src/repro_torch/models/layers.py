@@ -1,0 +1,266 @@
+"""Shared neural layers: norms, RoPE, GQA attention, SwiGLU and the token
+embedding, in the names of the JAX package's ``models/layers.py``.
+
+Each block of parameters is an ``nn.Module`` (:class:`Attention`,
+:class:`SwiGLU`), and each function takes that module as ``p`` where the
+JAX function takes its parameter dict.  Matrices are kept in ``F.linear``'s
+(out, in) layout and in the compute type, cast once when they are made or
+loaded (the JAX package keeps f32 masters and casts at each use: the same
+values).  Norm gains stay float32, as ``rmsnorm`` reads them.  Parameters
+are made with ``requires_grad=False``: the port serves and does not train
+yet.  ``sharding.specs.shard`` is a no-op on one device, so its calls are
+dropped.
+
+Not ported yet: ``attn_decode`` (the per-layer cache and its
+cross-attention branch, with encoder–decoder models), the ``x_kv``
+argument of ``_project_qkv`` and ``attn_apply`` (cross-attention), and
+``chunked_lm_loss`` and ``cross_entropy`` (with training).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import runtime
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.models.config import ModelConfig
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def param(shape, dtype, device, fill: Optional[float] = None) -> nn.Parameter:
+    """An uninitialized parameter (or one filled with ``fill``)."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    if fill is not None:
+        t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill ``w`` (out, in) with N(0, 1/in) draws, made in float32 as the
+    JAX package's ``dense_init`` makes them, then cast to ``w``'s type."""
+    draw = torch.randn(w.shape, generator=generator, device=w.device,
+                       dtype=torch.float32)
+    w.copy_(draw * float(1.0 / np.sqrt(w.shape[1])))
+
+
+def rmsnorm(x, gamma, eps):
+    xf = x.float()
+    nrm = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * nrm * gamma.float()).to(x.dtype)
+
+
+def layernorm(x, gamma, beta, eps):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """x: (B, H, S, D); positions: (S,) or (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = (1.0 / theta) ** (
+        torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    if positions.ndim == 1:
+        ang = (positions.float()[:, None] * freqs[None, :])[None, None]
+    else:
+        ang = positions.float()[:, None, :, None] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Stacked KV cache.  ``k``, ``v``: (L, B, Hkv, Smax, hd) device tensors,
+    written in place (the JAX package returns a new cache at each step);
+    ``index``: the filled length, a host int, so no step reads the device."""
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int
+
+
+class Attention(nn.Module):
+    """One GQA attention block: ``wq`` (q_dim, d_model), ``wk`` and ``wv``
+    (kv_dim, d_model), ``wo`` (d_model, q_dim) in the compute type; biases
+    ``bq``/``bk``/``bv`` when ``cfg.qkv_bias``; per-head RMS gains
+    ``qn``/``kn`` (float32) when ``cfg.qk_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt = cdtype(cfg)
+        self.wq = param((cfg.q_dim, cfg.d_model), dt, device)
+        self.wk = param((cfg.kv_dim, cfg.d_model), dt, device)
+        self.wv = param((cfg.kv_dim, cfg.d_model), dt, device)
+        self.wo = param((cfg.d_model, cfg.q_dim), dt, device)
+        self.bq = self.bk = self.bv = self.qn = self.kn = None
+        if cfg.qkv_bias:
+            self.bq = param((cfg.q_dim,), dt, device, 0.0)
+            self.bk = param((cfg.kv_dim,), dt, device, 0.0)
+            self.bv = param((cfg.kv_dim,), dt, device, 0.0)
+        if cfg.qk_norm:
+            self.qn = param((cfg.hd,), torch.float32, device, 1.0)
+            self.kn = param((cfg.hd,), torch.float32, device, 1.0)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random matrices; biases stay zero and gains one."""
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, generator)
+
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig) -> Attention:
+    """An :class:`Attention` with random matrices, zero biases and unit
+    gains, on the generator's device."""
+    p = Attention(cfg, device=generator.device)
+    p.reset_parameters(generator)
+    return p
+
+
+def _project_qkv(p: Attention, x, cfg: ModelConfig):
+    """q (B, Hq, S, hd), k and v (B, Hkv, S, hd), as views of the
+    projections."""
+    b, s, _ = x.shape
+    q = F.linear(x, p.wq, p.bq)
+    k = F.linear(x, p.wk, p.bk)
+    v = F.linear(x, p.wv, p.bv)
+    q = q.view(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    k = k.view(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    v = v.view(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.qn, cfg.norm_eps)
+        k = rmsnorm(k, p.kn, cfg.norm_eps)
+    return q, k, v
+
+
+def attn_apply(p: Attention, x, cfg: ModelConfig, *, positions,
+               causal: bool = True, use_rope: bool = True,
+               return_kv: bool = False):
+    """Full-sequence self-attention (prefill).  ``return_kv`` also returns
+    k and v (B, Hkv, S, hd), after RoPE, for the cache."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = attn_ops.attention(q, k, v, causal=causal)
+    out = F.linear(o.transpose(1, 2).reshape(b, s, cfg.q_dim), p.wo)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attn_decode_stacked(p: Attention, x, cfg: ModelConfig, ks, vs,
+                        layer: int, index: int, *, use_rope: bool = True):
+    """One-token decode step against the stacked (L, B, Hkv, S, hd) cache.
+
+    Writes this token's k and v into ``ks``/``vs`` at (layer, index) in
+    place and attends over the first ``index + 1`` positions.  Returns
+    ``(out, ks, vs)`` as the JAX function does; ``ks``/``vs`` are the
+    tensors passed in.  An ``index`` past the cache raises (the JAX
+    package's ``dynamic_update_slice`` would clamp it)."""
+    if not 0 <= index < ks.shape[3]:
+        raise IndexError(f"KV cache of {ks.shape[3]} positions is full "
+                         f"(index {index})")
+    b = x.shape[0]
+    q, k1, v1 = _project_qkv(p, x, cfg)
+    if use_rope:
+        pos = torch.arange(index, index + 1, device=x.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k1 = rope(k1, pos, cfg.rope_theta)
+    ks[layer, :, :, index] = k1[:, :, 0]
+    vs[layer, :, :, index] = v1[:, :, 0]
+    length = torch.full((b,), index + 1, dtype=torch.int32, device=x.device)
+    o = decode_ops.decode_attention(q[:, :, 0].contiguous(), ks[layer],
+                                    vs[layer], length)
+    out = F.linear(o.reshape(b, 1, cfg.q_dim), p.wo)
+    return out, ks, vs
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               n_layers: Optional[int] = None, device=None) -> KVCache:
+    """Zero-filled stacked KV cache (L, B, Hkv, max_len, hd) in the compute
+    type, on the card unless ``device`` names another.  (The JAX package's
+    unstacked form serves ``attn_decode``, which waits.)"""
+    nl = n_layers if n_layers is not None else cfg.n_layers
+    shape = (nl, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    dev = runtime.resolve_device(device)
+    return KVCache(k=torch.zeros(shape, dtype=cdtype(cfg), device=dev),
+                   v=torch.zeros(shape, dtype=cdtype(cfg), device=dev),
+                   index=0)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+class SwiGLU(nn.Module):
+    """``wi`` and ``wg`` (d_ff, d_model), ``wd`` (d_model, d_ff)."""
+
+    def __init__(self, d_model: int, d_ff: int, *, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.wi = param((d_ff, d_model), dtype, device)
+        self.wg = param((d_ff, d_model), dtype, device)
+        self.wd = param((d_model, d_ff), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wi, self.wg, self.wd):
+            dense_init_(w, generator)
+
+
+def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int, *,
+                dtype: torch.dtype) -> SwiGLU:
+    p = SwiGLU(d_model, d_ff, dtype=dtype, device=generator.device)
+    p.reset_parameters(generator)
+    return p
+
+
+def swiglu_apply(p: SwiGLU, x):
+    return F.linear(F.silu(F.linear(x, p.wg)) * F.linear(x, p.wi), p.wd)
+
+
+# ---------------------------------------------------------------------------
+# Token embedding and the LM head
+# ---------------------------------------------------------------------------
+
+def embed_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """``embed`` (vocab, d_model) N(0, 0.02²) and, unless the embeddings are
+    tied, ``lm_head`` (vocab, d_model) N(0, 1/d_model): float32 draws on the
+    generator's device."""
+    dev = generator.device
+    out = dict(embed=torch.randn((cfg.vocab, cfg.d_model),
+                                 generator=generator, device=dev) * 0.02)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = torch.empty((cfg.vocab, cfg.d_model), device=dev)
+        dense_init_(out["lm_head"], generator)
+    return out
+
+
+def embed_tokens(p, tokens, cfg: ModelConfig):
+    """Rows of ``p.embed`` for int tokens (B, S)."""
+    return F.embedding(tokens, p.embed)
+
+
+def lm_logits(p, x, cfg: ModelConfig):
+    w = p.embed if cfg.tie_embeddings else p.lm_head
+    return F.linear(x, w)

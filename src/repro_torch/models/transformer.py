@@ -1,0 +1,118 @@
+"""Decoder-only transformer LM, dense family: ``init``, ``prefill`` and
+``decode_step``, in the names of the JAX package's ``models/transformer.py``.
+
+The JAX package scans over stacked layer parameters; here each layer is a
+:class:`Block` module in a ``ModuleList`` and the layer loop is a Python
+loop.  The KV cache keeps the stacked (L, B, Hkv, S, hd) layout and is
+written in place.  ``forward`` and ``loss_fn`` wait for training, and the
+MoE and VLM branches for ``moe.py`` and the VLM frontend (ROADMAP queue 1,
+item 14).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import KVCache
+
+
+class Block(nn.Module):
+    """One pre-norm layer: ``ln1``, ``attn``, ``ln2`` and ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = layers.param((cfg.d_model,), torch.float32, device, 1.0)
+        self.ln2 = layers.param((cfg.d_model,), torch.float32, device, 1.0)
+        self.attn = layers.Attention(cfg, device)
+        self.mlp = layers.SwiGLU(cfg.d_model, cfg.d_ff,
+                                 dtype=layers.cdtype(cfg), device=device)
+
+    def forward(self, x, positions):
+        """Prefill: x (B, S, d_model) -> (x, (k, v)), k and v (B, Hkv, S, hd)."""
+        cfg = self.cfg
+        h = layers.rmsnorm(x, self.ln1, cfg.norm_eps)
+        a, kv = layers.attn_apply(self.attn, h, cfg, positions=positions,
+                                  return_kv=True)
+        x = x + a
+        h = layers.rmsnorm(x, self.ln2, cfg.norm_eps)
+        return x + layers.swiglu_apply(self.mlp, h), kv
+
+    def decode(self, x, ks, vs, layer: int, index: int):
+        """One token: x (B, 1, d_model); writes the cache at (layer, index)."""
+        cfg = self.cfg
+        h = layers.rmsnorm(x, self.ln1, cfg.norm_eps)
+        a, _, _ = layers.attn_decode_stacked(self.attn, h, cfg, ks, vs,
+                                             layer, index)
+        x = x + a
+        h = layers.rmsnorm(x, self.ln2, cfg.norm_eps)
+        return x + layers.swiglu_apply(self.mlp, h)
+
+
+class Transformer(nn.Module):
+    """The dense LM: ``embed``, ``lm_head`` (None when tied), ``layers`` and
+    ``final_norm``; parameters uninitialized until :func:`init` or
+    ``convert.from_reference`` fills them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.family != "dense" or cfg.n_experts:
+            raise NotImplementedError(
+                f"{cfg.name}: only the dense family is ported (ROADMAP "
+                f"queue 1, item 14)")
+        self.cfg = cfg
+        dt = layers.cdtype(cfg)
+        self.embed = layers.param((cfg.vocab, cfg.d_model), dt, device)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        layers.param((cfg.vocab, cfg.d_model), dt, device))
+        self.final_norm = layers.param((cfg.d_model,), torch.float32, device,
+                                       1.0)
+        self.layers = nn.ModuleList(Block(cfg, device)
+                                    for _ in range(cfg.n_layers))
+
+
+def init(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
+    """Random weights from ``generator``, on its device."""
+    model = Transformer(cfg, device=generator.device)
+    for blk in model.layers:
+        blk.attn.reset_parameters(generator)
+        blk.mlp.reset_parameters(generator)
+    for name, t in layers.embed_init(generator, cfg).items():
+        getattr(model, name).copy_(t)
+    return model
+
+
+def prefill(params: Transformer, tokens, cfg: ModelConfig, *, max_len: int):
+    """Run the prompt (B, S); return the last token's logits (B, 1, V) and a
+    stacked cache of ``max_len`` positions filled to S."""
+    x = layers.embed_tokens(params, tokens, cfg)
+    b, s, _ = x.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    positions = torch.arange(s, device=x.device)
+    cache = layers.make_cache(cfg, b, max_len, n_layers=len(params.layers),
+                              device=x.device)
+    for i, blk in enumerate(params.layers):
+        x, (k, v) = blk(x, positions)
+        cache.k[i, :, :, :s] = k
+        cache.v[i, :, :, :s] = v
+    x = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = layers.lm_logits(params, x[:, -1:], cfg)
+    return logits, KVCache(k=cache.k, v=cache.v, index=s)
+
+
+def decode_step(params: Transformer, cache: KVCache, tokens,
+                cfg: ModelConfig):
+    """tokens (B, 1).  Returns (logits (B, 1, V), the cache one token on).
+
+    The returned cache shares ``cache``'s tensors, which this step writes
+    at position ``cache.index``: ``cache`` itself stays valid for its own
+    index, since no read goes past it."""
+    x = layers.embed_tokens(params, tokens, cfg)
+    for i, blk in enumerate(params.layers):
+        x = blk.decode(x, cache.k, cache.v, i, cache.index)
+    x = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = layers.lm_logits(params, x, cfg)
+    return logits, KVCache(k=cache.k, v=cache.v, index=cache.index + 1)

@@ -1,0 +1,53 @@
+"""Serving steps: prefill (prompt -> cache) and decode (one token a step)
+for the ported families."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.api import get_model
+from repro_torch.models.config import ModelConfig
+
+SAMPLERS = ("greedy", "categorical")
+
+
+def make_prefill_step(cfg: ModelConfig, *, max_len: int):
+    """Returns ``prefill_step(params, batch) -> (logits, state)``."""
+    model = get_model(cfg)
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch["tokens"], cfg, max_len=max_len)
+
+    return prefill_step
+
+
+def pick(logits, *, sample: str = "greedy", temperature: float = 1.0,
+         generator=None):
+    """Next tokens (B,) int32 from the last position of logits (B, S, V).
+    ``"greedy"`` takes the argmax; ``"categorical"`` samples
+    softmax(logits / temperature) by the Gumbel-max trick, with uniform
+    noise from ``generator`` (on the logits' device), so no pick waits for
+    the device."""
+    lf = logits[:, -1].float()
+    if sample == "greedy":
+        return lf.argmax(dim=-1).to(torch.int32)
+    u = torch.rand(lf.shape, generator=generator, device=lf.device)
+    gumbel = -torch.log(-torch.log(u))
+    return (lf / temperature + gumbel).argmax(dim=-1).to(torch.int32)
+
+
+def make_decode_step(cfg: ModelConfig, *, sample: str = "greedy",
+                     temperature: float = 1.0):
+    """Returns ``decode_step(params, state, tokens, generator=None) ->
+    (next_tokens (B, 1) int32, state, logits)``; ``sample`` as in
+    :func:`pick`."""
+    if sample not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sample!r}; options: {SAMPLERS}")
+    model = get_model(cfg)
+
+    def decode_step(params, state, tokens, generator=None):
+        logits, new_state = model.decode_step(params, state, tokens, cfg)
+        nxt = pick(logits, sample=sample, temperature=temperature,
+                   generator=generator)
+        return nxt[:, None], new_state, logits
+
+    return decode_step

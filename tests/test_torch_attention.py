@@ -1,0 +1,259 @@
+"""The port's attention kernels — flash attention (K6) and decode attention
+(K7) — held against the JAX package's Pallas kernels, run in interpret
+mode, and against its plain oracles.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the tests
+marked ``gpu`` compare the CUDA kernels with those plain versions on the
+card and skip without one.
+
+Tolerances: the seed's own for a kernel against its oracle
+(``tests/test_kernels.py``): 2e-3 in float32 and 3e-2 in bfloat16.  On the
+card the kernel and its plain version both compute in float32 from the same
+inputs and differ only in the order of their sums: 1e-4 (times the largest
+output, when that is above 1) in float32; in bfloat16 the two float32
+results may round to neighbouring values, so two bf16 ulps of each output
+(2**-6 of it) plus 1e-5.
+"""
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.decode_attention import (
+    decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention, flash_attention_plain)
+
+F32_TOL = 2e-3
+BF16_TOL = 3e-2
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# (B, Hq, Hkv, S, D): the seed's sweep shapes, then GQA groups 2 and 5
+FLASH_CASES = [(1, 4, 4, 256, 64), (2, 8, 2, 512, 128), (1, 4, 1, 256, 64),
+               (1, 4, 2, 256, 64), (1, 10, 2, 256, 64)]
+# the seed's decode sweep shapes (groups 4 and 1), then group 5
+DECODE_CASES = [(2, 8, 2, 1024, 64), (1, 4, 4, 2048, 128),
+                (3, 10, 2, 512, 64)]
+LENGTHS = ["zero", "one", "random", "full"]
+
+
+def _repro_modules():
+    return {k: v for k, v in sys.modules.items()
+            if k == "repro" or k.startswith("repro.")}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's attention kernels and oracles, imported for this
+    module only (the ``jax.experimental.enable_x64`` name is installed for
+    the import and removed again with the ``repro`` modules on teardown)."""
+    import jax
+    import jax.experimental
+    import jax.numpy as jnp
+    saved = _repro_modules()
+    shimmed = not hasattr(jax.experimental, "enable_x64")
+    if shimmed:
+        jax.experimental.enable_x64 = jax.enable_x64
+    try:
+        from repro.kernels.decode_attention import decode_attention as dk
+        from repro.kernels.decode_attention import ref as dr
+        from repro.kernels.flash_attention import flash_attention as fk
+        from repro.kernels.flash_attention import ref as fr
+        yield types.SimpleNamespace(jnp=jnp, flash=fk, flash_ref=fr,
+                                    decode=dk, decode_ref=dr)
+    finally:
+        if shimmed:
+            del jax.experimental.enable_x64
+        for name in _repro_modules():
+            del sys.modules[name]
+        sys.modules.update(saved)
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided here, never while the module imports."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(b, hq, hkv, s, d, *, seed=0, decode=False):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, d) if decode else (b, hq, s, d))
+    k = rng.standard_normal((b, hkv, s, d))
+    v = rng.standard_normal((b, hkv, s, d))
+    return [a.astype(np.float32) for a in (q, k, v)]
+
+
+def _lengths(kind, b, s, seed=0):
+    rng = np.random.default_rng(seed + 1)
+    return {"zero": np.zeros(b), "one": np.ones(b),
+            "random": rng.integers(1, s, b),
+            "full": np.full(b, s)}[kind].astype(np.int32)
+
+
+def _torch(arrays, dtype, device="cpu"):
+    return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in arrays]
+
+
+def _jax(ref, arrays, dtype):
+    return [ref.jnp.asarray(a, getattr(ref.jnp, dtype)) for a in arrays]
+
+
+def _err(got, want) -> float:
+    return float((got.float() - torch.from_numpy(np.array(
+        want, np.float32))).abs().max())
+
+
+# --- flash attention (K6) ----------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas(ref, case, causal, dtype):
+    arrays = _qkv(*case)
+    want = ref.flash.flash_attention(*_jax(ref, arrays, dtype), causal=causal,
+                                     interpret=True)
+    got = attn_ops.attention(*_torch(arrays, DTYPES[dtype]), causal=causal)
+    assert got.dtype == DTYPES[dtype] and got.shape == case[:2] + case[3:]
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    assert _err(got, want.astype(ref.jnp.float32)) < tol
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [77, 1000])
+def test_flash_attention_plain_matches_ref_ragged(ref, s, causal):
+    """Lengths the Pallas kernel's tiling refuses: the oracle takes them."""
+    arrays = _qkv(1, 4, 2, s, 64, seed=s)
+    want = ref.flash_ref.attention(*_jax(ref, arrays, "float32"),
+                                   causal=causal)
+    got = flash_attention(*_torch(arrays, torch.float32), causal=causal)
+    assert _err(got, want) < F32_TOL
+
+
+def test_attention_wrappers_check_inputs():
+    q, k, v = _torch(_qkv(1, 4, 2, 16, 16), torch.float32)
+    before = dict(kernels.LAUNCHES)
+    flash_attention(q, k, v)
+    decode_attention(q[:, :, 0], k, v, torch.ones(1, dtype=torch.int32))
+    assert kernels.LAUNCHES == before          # the CPU launches nothing
+    with pytest.raises(ValueError, match="group"):
+        flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :, :8], k, v)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k, v)
+    with pytest.raises(ValueError, match="length"):
+        decode_attention(q[:, :, 0], k, v, torch.ones(1, dtype=torch.int64))
+    meta = [t.to("meta") for t in (q, k, v)]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash_attention(*meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        decode_attention(meta[0][:, :, 0], meta[1], meta[2],
+                         torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+# --- decode attention (K7) ---------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("lengths", LENGTHS)
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_plain_matches_pallas(ref, case, lengths, dtype):
+    b, hq, hkv, s, d = case
+    arrays = _qkv(*case, decode=True)
+    ln = _lengths(lengths, b, s)
+    want = ref.decode.decode_attention(*_jax(ref, arrays, dtype),
+                                       ref.jnp.asarray(ln), interpret=True)
+    got = dec_ops.decode_attention(*_torch(arrays, DTYPES[dtype]),
+                                   torch.from_numpy(ln))
+    assert got.dtype == DTYPES[dtype] and got.shape == (b, hq, d)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    assert _err(got, want.astype(ref.jnp.float32)) < tol
+
+
+def test_decode_attention_zero_length_is_mean_of_v():
+    """Hazard H7: every logit of a row with length 0 is -1e30, so each
+    p = exp(0) = 1 and the row's output is V's mean over all S."""
+    q, k, v = _torch(_qkv(2, 4, 2, 77, 16, decode=True), torch.float32)
+    got = decode_attention(q, k, v, torch.tensor([0, 77], dtype=torch.int32))
+    want = v[0].mean(dim=1).repeat_interleave(2, dim=0)
+    assert float((got[0] - want).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("s", [77, 1000])
+def test_decode_attention_plain_matches_ref_ragged(ref, s):
+    arrays = _qkv(3, 10, 2, s, 64, seed=s, decode=True)
+    ln = np.array([0, 1, s - 3], np.int32)
+    want = ref.decode_ref.decode_attention(*_jax(ref, arrays, "float32"),
+                                           ref.jnp.asarray(ln))
+    got = decode_attention(*_torch(arrays, torch.float32), torch.from_numpy(ln))
+    assert _err(got, want) < F32_TOL
+
+
+# --- the CUDA kernels against their plain versions, on the card -------------
+
+def _card_tol(want: torch.Tensor):
+    w = want.float()
+    if want.dtype == torch.bfloat16:
+        return 2.0 ** -6 * w.abs() + 1e-5
+    return 1e-4 * max(1.0, float(w.abs().max()))
+
+
+def _assert_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(((got.float() - want.float()).abs() <= _card_tol(want)).all())
+
+
+# (B, Hq, Hkv, S, D): ragged lengths, Qwen1.5-0.5B's heads at its prompt,
+# Qwen2.5-14B's GQA (40 q heads over 8 KV heads, hd 128), the smoke widths
+GPU_FLASH = [(2, 4, 2, 77, 64), (1, 4, 4, 1000, 64), (2, 16, 16, 1024, 64),
+             (1, 40, 8, 256, 128), (2, 5, 1, 33, 16), (1, 6, 3, 130, 32)]
+# and decode: group 10 takes two blocks of 8 query heads per KV head
+GPU_DECODE = [(3, 16, 16, 1536, 64), (3, 40, 8, 1000, 128),
+              (3, 20, 2, 77, 64), (3, 5, 1, 40, 16), (3, 8, 8, 513, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", GPU_FLASH)
+def test_gpu_flash_attention_matches_plain(cuda, case, causal, dtype):
+    q, k, v = _torch(_qkv(*case), DTYPES[dtype], cuda)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    _assert_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", GPU_DECODE)
+def test_gpu_decode_attention_matches_plain(cuda, case, dtype):
+    b, hq, hkv, s, d = case
+    q, k, v = _torch(_qkv(*case, decode=True), DTYPES[dtype], cuda)
+    for ln in ([0, 1, s], [s + 5, s // 2, -1]):
+        length = torch.tensor(ln, dtype=torch.int32, device=cuda)
+        before = kernels.LAUNCHES["decode_attention"]
+        got = decode_attention(q, k, v, length)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["decode_attention"] == before + 1
+        _assert_close(got, decode_attention_plain(q, k, v, length))
+
+
+@pytest.mark.gpu
+def test_gpu_decode_attention_reads_a_cache_layer_view(cuda):
+    """The decode path hands the kernel ``ks[layer]``, a view into the
+    stacked cache: contiguous, at an offset."""
+    q, k, v = _torch(_qkv(2, 8, 4, 96, 64, decode=True), torch.bfloat16, cuda)
+    ks = torch.stack([torch.zeros_like(k), k])
+    vs = torch.stack([torch.zeros_like(v), v])
+    length = torch.tensor([50, 96], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, ks[1], vs[1], length)
+    _assert_close(got, decode_attention_plain(q, k, v, length))

@@ -244,6 +244,16 @@ def test_port_imports_neither_jax_nor_repro():
         "t = c.build_table(g.src, g.dst, pos, 4 * g.num_edges + 1)\n"
         "got = c.lookup(t, g.src, g.dst, device='cpu')\n"
         "assert (got.numpy() == pos).all()\n"
+        "import dataclasses\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import serve_lm\n"
+        "from repro_torch.models import api, convert, layers, transformer\n"
+        "from repro_torch.kernels.flash_attention import ops as d\n"
+        "from repro_torch.kernels.decode_attention import ops as e\n"
+        "cfg = dataclasses.replace(get_config('qwen1.5-0.5b', smoke=True),\n"
+        "                          n_layers=1)\n"
+        "res = serve_lm.serve(cfg, batch=2, prompt_len=9, gen=3, device='cpu')\n"
+        "assert res.seqs.shape == (2, 3) and res.logits_finite\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
