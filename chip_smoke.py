@@ -51,7 +51,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    c. two layers at Qwen1.5-0.5B's width in float32, on the card with the
       kernels and on the CPU with the plain versions, from the same
       weights, teacher-forced, logits held within ``PARITY_TOL``;
-7. one ``{"kernels": [...]}`` line, the card line, and last the result
+   d. Phi-3-mini at its full config (head dim 96): the attention kernels
+      against their plain versions on its layer-0 inputs and at head dims
+      96 and 24 (its smoke config's), in bf16 and float32, timed at its
+      shapes; then ``serve_lm.main`` at batch 8, prompt 1024, 32 tokens,
+      with the launch counts checked;
+7. RWKV6-3B at its full config in bf16, the WKV recurrence K9:
+   a. K9 against its plain version on the inputs of every layer of the
+      served model's prefill and on edge cases (T = 1, 77 and 0, head dims
+      16 and 64, the decay near 0 and near 1), in bf16 and float32, within
+      the tolerances stated below; timed beside its bound and plain
+      version; one profiler window each over a prefill and decode steps;
+   b. ``serve_lm.main`` at batch 8, prompt 1024 and RWKV_GEN tokens: one K9
+      launch per layer, every logit finite;
+   c. two layers at its width in float32, card against CPU as in 6c;
+8. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
@@ -86,6 +100,10 @@ GQA_ARCH = "qwen2.5-14b"        # full width, depth cut to GQA_LAYERS
 GQA_LAYERS, GQA_BATCH, GQA_GEN = 8, 4, 32
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 2, 128, 8
 PROFILE_DECODE_STEPS = 32
+PHI3_ARCH = "phi3-mini-3.8b"    # head dim 96 (24 in its smoke config)
+PHI3_GEN = 32
+RWKV_ARCH = "rwkv6-3b"          # full config, bf16: K9 in every prefill layer
+RWKV_GEN = 128
 # Attention kernel against its plain version on the card: both compute in
 # float32 from the same inputs and differ only in the order of their sums.
 # float32: 1e-4 times the largest output (when above 1), a few hundred ulps
@@ -99,6 +117,15 @@ ATTN_BF16_REL = 2.0 ** -6
 # Sums of depth up to 2816 taken in another order on each side leave errors
 # of order 1e-5 at logits of order 1.
 PARITY_TOL = 1e-4
+# K9 against its plain version on the card.  float32 (TF32 off): 1e-4
+# absolute on the output and on the float32 final state.  bf16: the output
+# as max |got - want| / max |want| at 1e-2, since the output grows with T
+# (to about 1e3 at the served shapes) and one bf16 ulp there is 4 or 8; the
+# float32 state at 1e-4 absolute.  The kernel repeats the plain version's
+# float32 operations in the same order, so it is expected to agree to the
+# bit (error 0); the tolerances are what the check allows.
+WKV_F32_TOL = 1e-4
+WKV_BF16_REL = 1e-2
 
 
 def _log(*parts) -> None:
@@ -721,6 +748,21 @@ def _decode_cost(q, k, v, length):
             4 * hq * rows * d)
 
 
+def _sdpa(q, k, v):
+    """The library call beside K6: causal GQA attention."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+
+
+def _sdpa_decode(q, k, v, length):
+    """The library call beside K7, at the first decode step's length."""
+    import torch.nn.functional as F
+    n = LM_PROMPT + 1
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k[:, :, :n], v[:, :, :n], enable_gqa=True)
+
+
 def _attn_timing(torch, kernel, plain, library, calls, cost) -> dict:
     """Kernel, plain and library times over ``calls`` (argument tuples,
     taken in turn, as the path's layers take them), and the bound."""
@@ -738,31 +780,19 @@ def _attn_timing(torch, kernel, plain, library, calls, cost) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=nops)
 
 
-def phase_attention(torch, dev, record) -> list:
-    """Phase 6a: the attention kernels against their plain versions, with
-    inputs captured from the served model (its prefill and its first
-    decode step, every layer), on the GQA shapes of Qwen2.5-14B and on
-    ragged lengths; timed beside their bounds, plain versions and
-    ``scaled_dot_product_attention``; and one profiler window each over a
-    prefill and over decode steps of the served model."""
-    import torch.nn.functional as F
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import KERNELS
+def _served_attention(torch, dev, cfg, max_len):
+    """The served run's weights and prompts (``serve_lm.serve`` draws them
+    so), one prefill and one decode step of them, and the arguments of
+    every attention call the two made: (params, tokens, cache, first
+    tokens, flash attention calls, decode attention calls)."""
     from repro_torch.kernels.decode_attention import ops as dec_ops
-    from repro_torch.kernels.decode_attention.decode_attention import (
-        decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, flash_attention_plain)
     from repro_torch.models import api, transformer
     from repro_torch.train.serve_step import pick
-    cfg = get_config(LM_ARCH)
-    # The served run's weights and prompts: serve_lm.serve draws them so.
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     params = api.get_model(cfg).init(gen, cfg)
     tokens = api.synth_batch(LM_SEED, cfg, LM_BATCH, LM_PROMPT,
                              device=dev)["tokens"]
-    max_len = LM_PROMPT + LM_GEN
     flash_calls, decode_calls = [], []
     with _calls(attn_ops, "attention", flash_calls), \
             _calls(dec_ops, "decode_attention", decode_calls):
@@ -772,10 +802,31 @@ def phase_attention(torch, dev, record) -> list:
         transformer.decode_step(params, cache, first, cfg)
     torch.cuda.synchronize()
     if len(flash_calls) != cfg.n_layers or len(decode_calls) != cfg.n_layers:
-        raise AssertionError("the served model did not call attention once "
-                             "per layer")
-    f_calls = [args for args, _ in flash_calls]
-    d_calls = [args for args, _ in decode_calls]
+        raise AssertionError(f"{cfg.name} did not call attention once per "
+                             f"layer")
+    return (params, tokens, cache, first, [a for a, _ in flash_calls],
+            [a for a, _ in decode_calls])
+
+
+def phase_attention(torch, dev, record) -> list:
+    """Phase 6a: the attention kernels against their plain versions, with
+    inputs captured from the served model (its prefill and its first
+    decode step, every layer), on the GQA shapes of Qwen2.5-14B and on
+    ragged lengths; timed beside their bounds, plain versions and
+    ``scaled_dot_product_attention``; and one profiler window each over a
+    prefill and over decode steps of the served model."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models import transformer
+    from repro_torch.train.serve_step import pick
+    cfg = get_config(LM_ARCH)
+    max_len = LM_PROMPT + LM_GEN
+    params, tokens, cache, first, f_calls, d_calls = _served_attention(
+        torch, dev, cfg, max_len)
 
     record["lm_profile_prefill"] = _profile_window(
         torch, lambda: transformer.prefill(params, tokens, cfg,
@@ -843,15 +894,6 @@ def phase_attention(torch, dev, record) -> list:
         errs[name] = [_attn_check(torch, name, kernel, plain, *c)
                       for c in cases]
 
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
-
-    def sdpa_decode(q, k, v, length):
-        n = LM_PROMPT + 1              # the first decode step's length
-        return F.scaled_dot_product_attention(
-            q[:, :, None], k[:, :, :n], v[:, :, :n], enable_gqa=True)
-
     # The 14B model's shapes, one input set for each of its cut layers.
     gqa_flash = [(_randn(torch, g, (GQA_BATCH, 40, LM_PROMPT, 128), bf16),
                   _randn(torch, g, (GQA_BATCH, 8, LM_PROMPT, 128), bf16),
@@ -867,10 +909,10 @@ def phase_attention(torch, dev, record) -> list:
                   for _ in range(GQA_LAYERS)]
     rows = []
     for name, kernel, plain, library, calls, gqa, cost in (
-            ("flash_attention", flash_attention, flash_attention_plain, sdpa,
+            ("flash_attention", flash_attention, flash_attention_plain, _sdpa,
              f_calls, gqa_flash, _flash_cost),
             ("decode_attention", decode_attention, decode_attention_plain,
-             sdpa_decode, d_calls, gqa_decode, _decode_cost)):
+             _sdpa_decode, d_calls, gqa_decode, _decode_cost)):
         t = _attn_timing(torch, kernel, plain, library, calls, cost)
         tg = _attn_timing(torch, kernel, plain, library, gqa, cost)
         for label, r in (("served", t), ("qwen2.5-14b shapes", tg)):
@@ -891,17 +933,20 @@ def phase_attention(torch, dev, record) -> list:
     return rows
 
 
-def _serve_run(torch, label, cfg, batch, gen, run) -> dict:
+def _serve_run(torch, label, cfg, batch, gen, run, want=None) -> dict:
     """One served run: launch counts read just after it (the counts set to
-    0 just before), every logit finite, the tokens in the vocabulary."""
+    0 just before) equal to ``want`` (by default one flash attention per
+    layer and one decode attention per layer and step) and no other kernel,
+    every logit finite, the tokens in the vocabulary."""
     from repro_torch import kernels
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     res = run()
     counts = dict(kernels.LAUNCHES)
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (gen - 1)}
+    if want is None:
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * (gen - 1)}
     if any(counts[k] != want.get(k, 0) for k in counts):
         raise AssertionError(f"{label}: launches {counts}, expected {want} "
                              f"and no other kernel")
@@ -946,53 +991,295 @@ def phase_serve(torch, record) -> dict:
     return served["launches"]
 
 
-def phase_parity(torch, dev, record) -> None:
-    """Phase 6c: Qwen1.5-0.5B's width at PARITY_LAYERS layers in float32,
-    on the card with the kernels and on the CPU with the plain versions,
-    from the same weights, teacher-forced on the CPU's greedy tokens."""
+def phase_parity(torch, dev, record, arch, want) -> None:
+    """Phases 6c and 7c: ``arch``'s width at PARITY_LAYERS layers in
+    float32, on the card with the kernels and on the CPU with the plain
+    versions, from the same weights, teacher-forced on the CPU's greedy
+    tokens.  ``want`` is the run's launch count of each kernel it uses; a
+    state with a ``wkv`` field also has its prefill error reported."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.models import api, transformer
+    from repro_torch.models import api
     from repro_torch.train.serve_step import pick
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=PARITY_LAYERS,
+    cfg = dataclasses.replace(get_config(arch), n_layers=PARITY_LAYERS,
                               compute_dtype="float32")
-    card = transformer.init(torch.Generator(device=dev).manual_seed(LM_SEED),
-                            cfg)
-    cpu = transformer.Transformer(cfg, device="cpu")
+    model = api.get_model(cfg)
+    card = model.init(torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
+    cpu = type(card)(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
     tokens = api.synth_batch(LM_SEED, cfg, PARITY_BATCH, PARITY_PROMPT,
                              device="cpu")["tokens"]
     max_len = PARITY_PROMPT + PARITY_GEN
     kernels.reset_launches()
-    want, cstate = transformer.prefill(cpu, tokens, cfg, max_len=max_len)
-    got, gstate = transformer.prefill(card, tokens.to(dev), cfg,
-                                      max_len=max_len)
+    want_logits, cstate = model.prefill(cpu, tokens, cfg, max_len=max_len)
+    got, gstate = model.prefill(card, tokens.to(dev), cfg, max_len=max_len)
+    state, state_err = "", None
+    if hasattr(cstate, "wkv"):
+        state_err = float((gstate.wkv.cpu() - cstate.wkv).abs().max())
+        state = (f"; prefill WKV state max err {state_err:.3e} (max |state| "
+                 f"{float(cstate.wkv.abs().max()):.4g})")
     errs, compared = [], 0
     for step in range(PARITY_GEN):
         if step:
-            want, cstate = transformer.decode_step(cpu, cstate, nxt, cfg)
-            got, gstate = transformer.decode_step(card, gstate, nxt.to(dev),
-                                                  cfg)
-        errs.append(float((got.cpu() - want).abs().max()))
-        top2 = want[:, -1].topk(2, dim=-1).values
+            want_logits, cstate = model.decode_step(cpu, cstate, nxt, cfg)
+            got, gstate = model.decode_step(card, gstate, nxt.to(dev), cfg)
+        errs.append(float((got.cpu() - want_logits).abs().max()))
+        top2 = want_logits[:, -1].topk(2, dim=-1).values
         sure = (top2[:, 0] - top2[:, 1]) > PARITY_TOL
-        nxt = pick(want)[:, None]
+        nxt = pick(want_logits)[:, None]
         if not torch.equal(pick(got.cpu())[sure], nxt[sure, 0]):
-            raise AssertionError(f"parity step {step}: greedy tokens differ "
-                                 f"where the margin exceeds the tolerance")
+            raise AssertionError(f"{arch} parity step {step}: greedy tokens "
+                                 f"differ where the margin exceeds the "
+                                 f"tolerance")
         compared += int(sure.sum())
-    counts = dict(kernels.LAUNCHES)
+    counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
     _log(f"parity (card kernels vs CPU plain, f32, {PARITY_LAYERS} layers of "
-         f"{LM_ARCH}, batch {PARITY_BATCH}, prompt {PARITY_PROMPT}, "
+         f"{arch}, batch {PARITY_BATCH}, prompt {PARITY_PROMPT}, "
          f"{PARITY_GEN} steps): max logit err per step "
          f"{[f'{e:.3e}' for e in errs]}, tolerance {PARITY_TOL}, "
-         f"{compared} tokens compared, launches {counts}")
+         f"{compared} tokens compared{state}; launches {counts}")
     if max(errs) > PARITY_TOL:
-        raise AssertionError(f"card vs CPU logits differ by {max(errs)}")
-    if counts["flash_attention"] != PARITY_LAYERS or \
-            counts["decode_attention"] != PARITY_LAYERS * (PARITY_GEN - 1):
-        raise AssertionError(f"parity run launches {counts}")
-    record["parity"] = dict(errs=errs, tol=PARITY_TOL, compared=compared)
+        raise AssertionError(f"{arch}: card vs CPU logits differ by "
+                             f"{max(errs)}")
+    if counts != want:
+        raise AssertionError(f"{arch} parity run launches {counts}, "
+                             f"expected {want}")
+    record.setdefault("parity", {})[arch] = dict(
+        errs=errs, tol=PARITY_TOL, compared=compared, state_err=state_err)
+
+
+def phase_phi3(torch, dev, rows, record) -> None:
+    """Phase 6d: Phi-3-mini at its full config in bf16, head dim 96 (fault
+    F1).  K6 and K7 against their plain versions, in bf16 and float32, on
+    the inputs of layer 0 of the served model's prefill and first decode
+    step and at head dims 96 and 24 (the smoke config's) on ragged
+    lengths; K6 and K7 timed at Phi-3's shapes (added to their rows as
+    ``phi3``); then ``serve_lm.main`` at batch 8, prompt 1024, PHI3_GEN
+    tokens, with the kernels' launch counts checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.launch import serve_lm
+    cfg = get_config(PHI3_ARCH)
+    params, _, cache, _, f_calls, d_calls = _served_attention(
+        torch, dev, cfg, LM_PROMPT + PHI3_GEN)
+    del params, cache
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    q0, k0, v0 = f_calls[0]
+    dq, dk, dv, dlen = d_calls[0]
+    flash_cases = [("phi3 served layer 0", (q0, k0, v0), {}),
+                   ("phi3 served layer 0",
+                    (q0.float(), k0.float(), v0.float()), {})]
+    decode_cases = [("phi3 served layer 0, first step", (dq, dk, dv, dlen),
+                     {}),
+                    ("phi3 served layer 0, first step",
+                     (dq.float(), dk.float(), dv.float(), dlen), {})]
+    for dt in (bf16, f32):
+        for b, hq, hkv, s, d in ((2, 32, 32, 77, 96), (2, 4, 4, 1000, 24),
+                                 (2, 8, 4, 130, 24)):
+            qkv = (_randn(torch, g, (b, hq, s, d), dt),
+                   _randn(torch, g, (b, hkv, s, d), dt),
+                   _randn(torch, g, (b, hkv, s, d), dt))
+            for causal in (True, False):
+                flash_cases.append((f"S={s} group {hq // hkv} hd {d} "
+                                    f"causal={causal}", qkv,
+                                    dict(causal=causal)))
+            lengths = [0, 1, s]
+            args = (_randn(torch, g, (3, hq, d), dt),
+                    _randn(torch, g, (3, hkv, s, d), dt),
+                    _randn(torch, g, (3, hkv, s, d), dt),
+                    torch.tensor(lengths, dtype=torch.int32, device=dev))
+            decode_cases.append((f"S={s} group {hq // hkv} hd {d} lengths "
+                                 f"{lengths}", args, {}))
+    by_name = {row["name"]: row for row in rows}
+    out = {}
+    for name, kernel, plain, library, cases, calls, cost in (
+            ("flash_attention", flash_attention, flash_attention_plain, _sdpa,
+             flash_cases, f_calls, _flash_cost),
+            ("decode_attention", decode_attention, decode_attention_plain,
+             _sdpa_decode, decode_cases, d_calls, _decode_cost)):
+        errs = [_attn_check(torch, name, kernel, plain, *c) for c in cases]
+        t = _attn_timing(torch, kernel, plain, library, calls, cost)
+        t.update(max_abs_err=errs[0], max_abs_err_all_cases=max(errs))
+        _log(f"kernel {name} ({PHI3_ARCH} shapes, bf16): {t['ms']:.4f} ms "
+             f"(bound {t['bound_ms']:.4f} ms by {t['bound_by']}, plain "
+             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
+             f"scaled_dot_product_attention)")
+        row = by_name[name]
+        row["phi3"] = t
+        row["max_abs_err_all_cases"] = max(row["max_abs_err_all_cases"],
+                                           max(errs))
+        out[name] = t
+    del f_calls, d_calls, q0, k0, v0, dq, dk, dv
+    served = _serve_run(
+        torch, PHI3_ARCH, cfg, LM_BATCH, PHI3_GEN,
+        lambda: serve_lm.main(["--arch", PHI3_ARCH, "--batch", str(LM_BATCH),
+                               "--prompt-len", str(LM_PROMPT), "--gen",
+                               str(PHI3_GEN), "--seed", str(LM_SEED)]))
+    for name in out:
+        by_name[name]["phi3"]["launches"] = served["launches"][name]
+    record["phi3"] = dict(kernels=out, serve=served)
+
+
+def _wkv_inputs(torch, g, bh, t, d, dt, decay="spread"):
+    """r, k, v (BH, T, D) N(0, 0.25), the decay w in (0, 1) (``decay``:
+    "spread", "near0" or "near1"), u (BH, D) N(0, 0.01), in type dt."""
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=g.device)
+    r, k, v = (0.5 * randn((bh, t, d)) for _ in range(3))
+    mean, sd = {"spread": (-2.0, 1.5), "near0": (2.0, 0.5),
+                "near1": (-6.0, 0.5)}[decay]
+    w = torch.exp(-torch.exp(mean + sd * randn((bh, t, d))))
+    u = 0.1 * randn((bh, d))
+    return tuple(z.to(dt) for z in (r, k, v, w, u))
+
+
+def _wkv_check(torch, cname, args) -> dict:
+    """One case of K9 against its plain version, output and final state;
+    raises past the tolerance.  Returns the errors."""
+    from repro_torch.kernels.rwkv6.wkv6 import wkv6, wkv6_plain
+    got, gstate = wkv6(*args, return_state=True)
+    want, wstate = wkv6_plain(*args, return_state=True)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            gstate.shape != wstate.shape or gstate.dtype != torch.float32:
+        raise AssertionError(f"wkv6 [{cname}]: {got.dtype} "
+                             f"{tuple(got.shape)} != {want.dtype} "
+                             f"{tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    mag = float(want.float().abs().max()) if want.numel() else 0.0
+    rel = err / mag if mag else 0.0
+    serr = float((gstate - wstate).abs().max())
+    exact = bool(torch.equal(got, want) and torch.equal(gstate, wstate))
+    ok = serr <= WKV_F32_TOL and (rel <= WKV_BF16_REL
+                                  if got.dtype == torch.bfloat16
+                                  else err <= WKV_F32_TOL)
+    _log(f"kernel wkv6 [{cname}, {args[0].dtype}, r {tuple(args[0].shape)}] "
+         f"max_abs_err={err:.3e} rel_err={rel:.3e} (max |out| {mag:.4g}) "
+         f"state_max_abs_err={serr:.3e} bit_exact={exact} within_tol={ok}")
+    if not ok:
+        raise AssertionError(f"wkv6 disagrees with its plain version on "
+                             f"{cname}")
+    return dict(case=cname, abs=err, rel=rel, state=serr, exact=exact)
+
+
+def _wkv_cost(r, k, v, w, u):
+    """(bytes, operations) of K9: r, k, v, w, u and out once each, the
+    float32 state once; 5 operations per (bh, t, i, j)."""
+    bh, t, d = r.shape
+    es = r.element_size()
+    return es * (5 * r.numel() + u.numel()) + 4 * bh * d * d, 5 * bh * t * d * d
+
+
+def phase_wkv6(torch, dev, record) -> dict:
+    """Phase 7a: K9 against its plain version on the inputs of every layer
+    of the served RWKV6-3B's prefill (bf16; layer 0 also in float32), at
+    T = 1, T = 77 (no chunk divides it), T = 0, D = 16 and 64, and w near 0
+    and near 1, in bf16 and float32; timed over the served layers' inputs
+    beside its bound and plain version (no single PyTorch call computes
+    WKV6); one profiler window each over a prefill and over decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.wkv6 import wkv6, wkv6_plain
+    from repro_torch.models import api, rwkv6
+    from repro_torch.train.serve_step import pick
+    cfg = get_config(RWKV_ARCH)
+    params = rwkv6.init(torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
+    tokens = api.synth_batch(LM_SEED, cfg, LM_BATCH, LM_PROMPT,
+                             device=dev)["tokens"]
+    calls = []
+    with _calls(wkv_ops, "wkv6", calls):
+        logits, state = rwkv6.prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    if len(calls) != cfg.n_layers:
+        raise AssertionError("the served RWKV6 did not call wkv6 once per "
+                             "layer")
+    served = [args for args, _ in calls]
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = [_wkv_check(torch, f"served layer {i}", args)
+               for i, args in enumerate(served)]
+    results.append(_wkv_check(torch, "served layer 0, float32",
+                              tuple(z.float() for z in served[0])))
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for dt in (bf16, f32):
+        for bh, t, d, decay in ((6, 1, 64, "spread"), (6, 77, 16, "spread"),
+                                (6, 77, 64, "spread"), (5, 1000, 64, "near0"),
+                                (5, 1000, 64, "near1"), (5, 1000, 16, "near1"),
+                                (4, 0, 64, "spread")):
+            results.append(_wkv_check(
+                torch, f"T={t} hd {d} w {decay}",
+                _wkv_inputs(torch, g, bh, t, d, dt, decay)))
+
+    def cycled(fn):
+        it = itertools.cycle(served)
+        return lambda: fn(*next(it), return_state=True)
+    ms = _time_ms(torch, cycled(wkv6), 2 * len(served))
+    plain_ms = _time_ms(torch, cycled(wkv6_plain), 3, warmup=1)
+    nbytes, nops = _wkv_cost(*served[0])
+    bound_ms, bound_by = _bound_ms(nbytes, nops)
+    _log(f"kernel wkv6 (served, bf16, r {tuple(served[0][0].shape)}): "
+         f"{ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}: {nbytes} "
+         f"bytes, {nops} operations; plain {plain_ms:.4f} ms, library none)")
+    del served, calls
+
+    record["rwkv_profile_prefill"] = _profile_window(
+        torch, lambda: rwkv6.prefill(params, tokens, cfg),
+        f"prefill {RWKV_ARCH} {LM_BATCH}x{LM_PROMPT}",
+        "chip_smoke_profile_rwkv_prefill.txt")
+    first = pick(logits)[:, None]
+
+    def decode_steps():
+        nxt = first
+        for _ in range(PROFILE_DECODE_STEPS):
+            out, _ = rwkv6.decode_step(params, state, nxt, cfg)
+            nxt = pick(out)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_steps()
+    torch.cuda.synchronize()
+    record["rwkv_decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / \
+        PROFILE_DECODE_STEPS
+    _log(f"decode step, {RWKV_ARCH} batch {LM_BATCH}, no profiler: "
+         f"{record['rwkv_decode_step_ms']:.3f} ms (host clock, mean of "
+         f"{PROFILE_DECODE_STEPS})")
+    record["rwkv_profile_decode"] = _profile_window(
+        torch, decode_steps, f"{PROFILE_DECODE_STEPS} decode steps "
+        f"{RWKV_ARCH} batch {LM_BATCH}", "chip_smoke_profile_rwkv_decode.txt")
+
+    source, replaces = KERNELS["wkv6"]
+    head = results[:cfg.n_layers]
+    row = dict(name="wkv6", route="cuda", source=source, replaces=replaces,
+               launches=0, max_abs_err=max(r["abs"] for r in head),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               max_rel_err=max(r["rel"] for r in head),
+               max_state_err_all_cases=max(r["state"] for r in results),
+               bit_exact_all_cases=all(r["exact"] for r in results),
+               bytes=nbytes, ops=nops)
+    record["wkv6_phase"] = dict(row=row, cases=results)
+    return row
+
+
+def phase_rwkv_serve(torch, record) -> int:
+    """Phase 7b: ``serve_lm.main`` at RWKV6-3B's full config, batch 8,
+    prompt 1024, RWKV_GEN tokens: one K9 launch per layer, in the prefill,
+    and no other kernel.  Returns K9's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    cfg = get_config(RWKV_ARCH)
+    served = _serve_run(
+        torch, RWKV_ARCH, cfg, LM_BATCH, RWKV_GEN,
+        lambda: serve_lm.main(["--arch", RWKV_ARCH, "--batch", str(LM_BATCH),
+                               "--prompt-len", str(LM_PROMPT), "--gen",
+                               str(RWKV_GEN), "--seed", str(LM_SEED)]),
+        want={"wkv6": cfg.n_layers})
+    record["serve"][RWKV_ARCH] = served
+    return served["launches"]["wkv6"]
 
 
 def main() -> int:
@@ -1053,7 +1340,16 @@ def main() -> int:
     rows += phase_attention(torch, dev, record)
     torch.cuda.empty_cache()
     launches.update(phase_serve(torch, record))
-    phase_parity(torch, dev, record)
+    phase_parity(torch, dev, record, LM_ARCH, {
+        "flash_attention": PARITY_LAYERS,
+        "decode_attention": PARITY_LAYERS * (PARITY_GEN - 1)})
+    torch.cuda.empty_cache()
+    phase_phi3(torch, dev, rows, record)
+    torch.cuda.empty_cache()
+    rows.append(phase_wkv6(torch, dev, record))
+    torch.cuda.empty_cache()
+    launches["wkv6"] = phase_rwkv_serve(torch, record)
+    phase_parity(torch, dev, record, RWKV_ARCH, {"wkv6": PARITY_LAYERS})
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -30,6 +30,9 @@ KERNELS = {
     "decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:58"),
+    "wkv6": (
+        "src/repro_torch/kernels/csrc/wkv6.cu",
+        "src/repro/kernels/rwkv6/rwkv6.py:51"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -22,11 +22,14 @@
 // warps walks its own 32-position chunks with its own online softmax:
 // lane i scores position i of the chunk for every head from one 16-byte
 // load at a time of the K row, the warp reduces max and sum with shuffles,
-// and then the warp reads the chunk's V rows whole (each lane D/32
-// columns) and accumulates P·V.  At the end the 8 warps' (m, l, acc) are
+// and then the warp reads the chunk's V rows whole (each lane ceil(D/32)
+// neighbouring columns, the last lanes idle when 32 does not divide D) and
+// accumulates P·V.  At the end the 8 warps' (m, l, acc) are
 // merged through shared memory.  One block per (b, kv head) leaves most of
 // the card idle at small batch; splitting the positions across blocks
-// (split-K) is for a later change.
+// (split-K) is for a later change.  Every head dim that is a multiple of 8
+// up to 128 has an instance: a K row is then a whole number of 16-byte
+// loads in bf16 and in float32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -37,6 +40,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int GB = 8;           // query heads per block
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_D = 128;      // head dims 8, 16, ..., MAX_D are built
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -69,7 +73,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ length,
               T* __restrict__ o, int hq, int hkv, int s, float scale) {
   constexpr int E = 16 / sizeof(T);             // elements per 16-byte load
-  constexpr int DPL = D >= 32 ? D / 32 : 1;     // P·V columns per lane
+  constexpr int DPL = (D + 31) / 32;            // P·V columns per lane
   __shared__ __align__(16) float qs[GB][D];
   __shared__ float ms[WARPS][GB], ls[WARPS][GB];
   __shared__ float accs[WARPS][GB][D];
@@ -82,7 +86,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((long long)b * hkv + hk) * seq;
   const T* vb = v + ((long long)b * hkv + hk) * seq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool lane_on = D >= 32 || lane < D;
+  const int c0 = lane * DPL;                    // this lane's first column
 
   for (int i = threadIdx.x; i < ng * D; i += THREADS)
     qs[i / D][i % D] = to_f32(q[((long long)b * hq + h0) * D + i]);
@@ -156,10 +160,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int cnt = min(32, n - base);
 #pragma unroll 4
     for (int j = 0; j < cnt; ++j) {
-      const T* vr = vb + (long long)(base + j) * D + lane * DPL;
+      const T* vr = vb + (long long)(base + j) * D + c0;
       float vv[DPL];
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) vv[c] = lane_on ? to_f32(vr[c]) : 0.f;
+      for (int c = 0; c < DPL; ++c) vv[c] = c0 + c < D ? to_f32(vr[c]) : 0.f;
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         if (g < ng) {
@@ -178,10 +182,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ms[warp][g] = m[g];
       ls[warp][g] = l[g];
     }
-    if (lane_on) {
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) accs[warp][g][lane * DPL + c] = acc[g][c];
-    }
+    for (int c = 0; c < DPL; ++c)
+      if (c0 + c < D) accs[warp][g][c0 + c] = acc[g][c];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < ng * D; i += THREADS) {
@@ -213,26 +216,27 @@ int launch(const void* q, const void* k, const void* v, const int* length,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// Instances for D = 8, 16, ..., MAX_D: the launch for head dim d.
+template <typename T, int D = 8>
 int dispatch(const void* q, const void* k, const void* v, const int* length,
              void* o, int b, int hq, int hkv, int s, int d, float scale,
              cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<16, T>(q, k, v, length, o, b, hq, hkv, s, scale, stream);
-    case 32: return launch<32, T>(q, k, v, length, o, b, hq, hkv, s, scale, stream);
-    case 64: return launch<64, T>(q, k, v, length, o, b, hq, hkv, s, scale, stream);
-    case 128: return launch<128, T>(q, k, v, length, o, b, hq, hkv, s, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (d == D)
+    return launch<D, T>(q, k, v, length, o, b, hq, hkv, s, scale, stream);
+  if constexpr (D < MAX_D)
+    return dispatch<T, D + 8>(q, k, v, length, o, b, hq, hkv, s, d, scale,
+                              stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Head dims this source is built for (the wrapper raises on any other).
+// Head dims this source is built for, a multiple of 8 up to MAX_D (the
+// wrapper raises on any other).
 int decode_attention_supports(int d) {
-  return d == 16 || d == 32 || d == 64 || d == 128;
+  return d >= 8 && d <= MAX_D && d % 8 == 0;
 }
 
 // q, o: (b, hq, d); k, v: (b, hkv, s, d); length: int32 (b,); all

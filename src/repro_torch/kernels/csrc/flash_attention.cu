@@ -20,15 +20,19 @@
 // (b, q head, 64-row query tile) and loops over the 64-key tiles itself,
 // with the statistics in registers.  256 threads form a 16 x 16 grid: each
 // thread owns 4 query rows (ty) and, for the scores, 4 keys (tx); for the
-// output, D/16 columns.  A row's max and sum are reduced over the 16 tx
-// threads of its half-warp with shuffles.  Q and K tiles sit in shared
-// memory transposed, so a thread's 4 rows and 4 keys at one depth are one
-// 16-byte load each; the probabilities go through shared memory,
-// transposed, to the P·V product.  Tiles above the diagonal are skipped:
+// output, ceil(D/16) neighbouring columns, the last threads' columns past D
+// left idle when 16 does not divide D (D = 24: 2 columns each for tx < 12).
+// A row's max and sum are reduced over the 16 tx threads of its half-warp
+// with shuffles.  Q and K tiles sit in shared memory transposed, so a
+// thread's 4 rows and 4 keys at one depth are one 16-byte load each; the
+// probabilities go through shared memory, transposed, to the P·V product.  Tiles above the diagonal are skipped:
 // every row has seen key 0 in the first tile, so a skipped tile would add
 // exp(-1e30 - m) = 0.  Any S is taken: keys past S in the last tile get
 // probability 0, and rows past S are not written.  Late query tiles, which
-// have the most key tiles under the causal mask, are launched first.
+// have the most key tiles under the causal mask, are launched first.  Every
+// head dim that is a multiple of 8 up to MAX_D has an instance; loads and
+// stores of q, k, v and o are one element each, so D need not be a
+// multiple of the 16-byte vector.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -40,6 +44,7 @@ constexpr int THREADS = 256;    // 16 x 16
 constexpr int PAD = 4;          // row padding that keeps float4 alignment
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_D = 128;      // head dims 8, 16, ..., MAX_D are built
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -61,7 +66,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
              int s, float scale, int causal) {
-  constexpr int CPT = D / 16;                 // output columns per thread
+  constexpr int CPT = (D + 15) / 16;          // output columns per thread
   constexpr int LQ = BQ + PAD, LK = BK + PAD, LV = D + PAD;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                           // [D][LQ]  Q tile, transposed
@@ -78,6 +83,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ((long long)b * hkv + hk) * seq;
   T* ob = o + ((long long)b * hq + h) * seq;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int c0 = tx * CPT;                    // this thread's first column
 
   for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
@@ -160,8 +166,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float4 p4 = *reinterpret_cast<const float4*>(pt + j * LQ + ty * 4);
       const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
       float vv[CPT];
-      const float* vr = vt + j * LV + tx * CPT;
-      if constexpr (CPT % 4 == 0) {
+      const float* vr = vt + j * LV + c0;
+      if constexpr (D % 16 == 0 && CPT % 4 == 0) {
 #pragma unroll
         for (int c = 0; c < CPT; c += 4) {
           const float4 t = *reinterpret_cast<const float4*>(vr + c);
@@ -169,7 +175,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       } else {
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) vv[c] = vr[c];
+        for (int c = 0; c < CPT; ++c) vv[c] = c0 + c < D ? vr[c] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -185,7 +191,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
-      store(ob + (long long)row * D + tx * CPT + c, acc[i][c] / den);
+      if (c0 + c < D) store(ob + (long long)row * D + c0 + c, acc[i][c] / den);
   }
 }
 
@@ -206,26 +212,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// Instances for D = 8, 16, ..., MAX_D: the launch for head dim d.
+template <typename T, int D = 8>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              int hq, int hkv, int s, int d, float scale, int causal,
              cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<16, T>(q, k, v, o, b, hq, hkv, s, scale, causal, stream);
-    case 32: return launch<32, T>(q, k, v, o, b, hq, hkv, s, scale, causal, stream);
-    case 64: return launch<64, T>(q, k, v, o, b, hq, hkv, s, scale, causal, stream);
-    case 128: return launch<128, T>(q, k, v, o, b, hq, hkv, s, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (d == D)
+    return launch<D, T>(q, k, v, o, b, hq, hkv, s, scale, causal, stream);
+  if constexpr (D < MAX_D)
+    return dispatch<T, D + 8>(q, k, v, o, b, hq, hkv, s, d, scale, causal,
+                              stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Head dims this source is built for (the wrapper raises on any other).
+// Head dims this source is built for, a multiple of 8 up to MAX_D (the
+// wrapper raises on any other).
 int flash_attention_supports(int d) {
-  return d == 16 || d == 32 || d == 64 || d == 128;
+  return d >= 8 && d <= MAX_D && d % 8 == 0;
 }
 
 // q, o: (b, hq, s, d); k, v: (b, hkv, s, d); all contiguous, one type:

@@ -1,8 +1,11 @@
 """Batched LM serving driver: prefill a prompt batch, decode N tokens a
-request.
+request, for the ported families: dense transformers (Qwen, Phi-3) and
+RWKV6.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen1.5-0.5b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6-3b \
+        --batch 8 --prompt-len 1024 --gen 64
 
 It runs on the CUDA card, and raises without one, unless ``--device``
 names another device: ``--device cpu`` runs the kernels' plain PyTorch

@@ -11,7 +11,9 @@ SAMPLERS = ("greedy", "categorical")
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int):
-    """Returns ``prefill_step(params, batch) -> (logits, state)``."""
+    """Returns ``prefill_step(params, batch) -> (logits, state)``.  The ssm
+    family's prefill accepts ``max_len`` and ignores it: its state does not
+    grow with the sequence."""
     model = get_model(cfg)
 
     def prefill_step(params, batch):

@@ -33,12 +33,16 @@ F32_TOL = 2e-3
 BF16_TOL = 3e-2
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# (B, Hq, Hkv, S, D): the seed's sweep shapes, then GQA groups 2 and 5
+# (B, Hq, Hkv, S, D): the seed's sweep shapes, then GQA groups 2 and 5,
+# then Phi-3's head dims, 96 and its smoke config's 24 (fault F1; the
+# Pallas kernel takes the whole head dim as one block, so it runs both)
 FLASH_CASES = [(1, 4, 4, 256, 64), (2, 8, 2, 512, 128), (1, 4, 1, 256, 64),
-               (1, 4, 2, 256, 64), (1, 10, 2, 256, 64)]
-# the seed's decode sweep shapes (groups 4 and 1), then group 5
+               (1, 4, 2, 256, 64), (1, 10, 2, 256, 64), (2, 4, 2, 128, 24),
+               (2, 4, 2, 128, 96)]
+# the seed's decode sweep shapes (groups 4 and 1), then group 5, then
+# Phi-3's head dims
 DECODE_CASES = [(2, 8, 2, 1024, 64), (1, 4, 4, 2048, 128),
-                (3, 10, 2, 512, 64)]
+                (3, 10, 2, 512, 64), (3, 8, 8, 512, 24), (3, 8, 8, 512, 96)]
 LENGTHS = ["zero", "one", "random", "full"]
 
 
@@ -257,3 +261,42 @@ def test_gpu_decode_attention_reads_a_cache_layer_view(cuda):
     length = torch.tensor([50, 96], dtype=torch.int32, device=cuda)
     got = decode_attention(q, ks[1], vs[1], length)
     _assert_close(got, decode_attention_plain(q, k, v, length))
+
+
+# Every head dim the kernels are built for: the multiples of 8 up to 128,
+# Phi-3's 96 and its smoke config's 24 among them (fault F1).
+HEAD_DIMS = list(range(8, 129, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_gpu_attention_kernels_at_every_head_dim(cuda, d, dtype):
+    """K6 (causal and not) and K7 at each built head dim, against their
+    plain versions; S = 77 and a GQA group of 2."""
+    q, k, v = _torch(_qkv(2, 4, 2, 77, d, seed=d), DTYPES[dtype], cuda)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _assert_close(got, flash_attention_plain(q, k, v, causal=causal))
+    length = torch.tensor([0, 50], dtype=torch.int32, device=cuda)
+    got = decode_attention(q[:, :, 0].contiguous(), k, v, length)
+    torch.cuda.synchronize()
+    _assert_close(got, decode_attention_plain(q[:, :, 0].contiguous(), k, v,
+                                              length))
+
+
+@pytest.mark.gpu
+def test_gpu_attention_kernels_say_what_is_built(cuda):
+    """``*_supports`` is true exactly for the head dims built, and the
+    wrappers refuse any other."""
+    from repro_torch.kernels import build
+    for name in ("flash_attention", "decode_attention"):
+        fn = getattr(build.load(name), f"{name}_supports")
+        assert [d for d in range(0, 300) if fn(d)] == HEAD_DIMS
+    q, k, v = _torch(_qkv(1, 2, 2, 16, 12), torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention(q[:, :, 0].contiguous(), k, v,
+                         torch.ones(1, dtype=torch.int32, device=cuda))

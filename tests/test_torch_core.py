@@ -254,6 +254,11 @@ def test_port_imports_neither_jax_nor_repro():
         "                          n_layers=1)\n"
         "res = serve_lm.serve(cfg, batch=2, prompt_len=9, gen=3, device='cpu')\n"
         "assert res.seqs.shape == (2, 3) and res.logits_finite\n"
+        "from repro_torch.models import rwkv6\n"
+        "from repro_torch.kernels.rwkv6 import ops as f\n"
+        "res = serve_lm.serve(get_config('rwkv6-3b', smoke=True), batch=2,\n"
+        "                     prompt_len=9, gen=3, device='cpu')\n"
+        "assert res.seqs.shape == (2, 3) and res.logits_finite\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -21,7 +21,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_config, list_archs
 from repro_torch.launch import serve_lm
-from repro_torch.models import api, convert, layers, transformer
+from repro_torch.models import api, convert, layers, rwkv6, transformer
 from repro_torch.train import serve_step
 
 LOGIT_TOL = 1e-4
@@ -265,6 +265,11 @@ def test_unported_families_raise():
             assert state.k.shape == (cfg.n_layers, 2, cfg.n_kv_heads, 10,
                                      cfg.hd) and state.index == 0
             continue
+        if cfg.family == "ssm":        # RWKV6: tests/test_torch_rwkv6.py
+            assert api.get_model(cfg).init is rwkv6.init
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                transformer.Transformer(cfg, device="cpu")
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.get_model(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -338,6 +343,37 @@ def test_gpu_model_matches_cpu(cuda, arch):
         before["flash_attention"] + cfg.n_layers
     assert kernels.LAUNCHES["decode_attention"] == \
         before["decode_attention"] + 5 * cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_gpu_phi3_matches_cpu_and_serves(cuda):
+    """Phi-3's head dims on the card (fault F1): 24 in its smoke config,
+    float32 against the CPU, then ``serve_lm`` in bf16 at head dim 96 with
+    the smoke config's other widths."""
+    cfg = get_config("phi3-mini-3.8b", smoke=True)
+    assert cfg.hd == 24
+    cpu = transformer.init(torch.Generator().manual_seed(0), cfg)
+    card = transformer.Transformer(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = api.synth_batch(2, cfg, 2, 50, device="cpu")["tokens"]
+    kernels.reset_launches()
+    want, cstate = transformer.prefill(cpu, tokens, cfg, max_len=54)
+    got, gstate = transformer.prefill(card, tokens.to(cuda), cfg, max_len=54)
+    _close(got.cpu(), want, LOGIT_TOL)
+    for _ in range(3):
+        nxt = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        want, cstate = transformer.decode_step(cpu, cstate, nxt, cfg)
+        got, gstate = transformer.decode_step(card, gstate, nxt.to(cuda), cfg)
+        _close(got.cpu(), want, LOGIT_TOL)
+    assert kernels.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert kernels.LAUNCHES["decode_attention"] == 3 * cfg.n_layers
+    wide = dataclasses.replace(cfg, d_model=384, compute_dtype="bfloat16")
+    assert wide.hd == 96
+    kernels.reset_launches()
+    res = serve_lm.serve(wide, batch=2, prompt_len=70, gen=4)
+    assert res.logits_finite and res.seqs.shape == (2, 4)
+    assert kernels.LAUNCHES["flash_attention"] == wide.n_layers
+    assert kernels.LAUNCHES["decode_attention"] == 3 * wide.n_layers
 
 
 @pytest.mark.gpu
