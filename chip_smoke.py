@@ -65,7 +65,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    b. ``serve_lm.main`` at batch 8, prompt 1024 and RWKV_GEN tokens: one K9
       launch per layer, every logit finite;
    c. two layers at its width in float32, card against CPU as in 6c;
-8. one ``{"kernels": [...]}`` line, the card line, and last the result
+8. Jamba v0.1 and MoE, the Mamba selective scan K8:
+   a. K8 against its plain version on the inputs of every Mamba sublayer
+      of the served Jamba prefill (one superblock at full width) and on
+      edge cases (T = 1, 77 and 0, N = 8 and 16, dim = 200, Δ near 1e-3
+      and near 1), in bf16 and float32, with and without the final state,
+      within the tolerances stated below; timed beside its bound and plain
+      version; profiler windows over a Jamba prefill and decode steps;
+   b. ``torch._grouped_mm``, MoE's grouped product, checked free of host
+      syncs in bf16 and held against per-group products (float32's
+      behaviour reported); ``serve_lm.serve`` on Jamba at full width,
+      depth cut to one superblock, at batch 8, prompt 1024 and 32 tokens:
+      7 K8 and 1 K6 in the prefill, 1 K7 a decode step, every logit
+      finite; then ``serve_lm.main`` on Qwen2-MoE-A2.7B at its full
+      config, batch 8, prompt 1024, 32 tokens, one K6 a layer and one K7
+      a layer and step;
+   c. Jamba's superblock at a quarter of its width and two layers of
+      Qwen2-MoE at its full width, float32, card against CPU as in 6c,
+      Jamba's prefill SSM state error reported;
+9. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
@@ -77,6 +95,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -126,6 +145,24 @@ PARITY_TOL = 1e-4
 # bit (error 0); the tolerances are what the check allows.
 WKV_F32_TOL = 1e-4
 WKV_BF16_REL = 1e-2
+JAMBA_ARCH = "jamba-v0.1-52b"   # full width, bf16, depth cut to JAMBA_LAYERS
+JAMBA_LAYERS = 8                # one superblock: 7 Mamba (K8), 1 attention
+JAMBA_GEN = 32
+MOE_ARCH = "qwen2-moe-a2.7b"    # full config, bf16
+MOE_GEN = 32
+# Jamba's parity model: one superblock at a quarter of its width, so that
+# the CPU side fits (hd stays 128 and the GQA group 4; 16 experts top 2,
+# N 16 and d_conv 4 as in the full config): about 0.93 B parameters.
+JAMBA_PARITY = dict(n_layers=JAMBA_LAYERS, d_model=1024, n_heads=8,
+                    n_kv_heads=2, d_ff=3584, d_expert=3584)
+# K8 against its plain version on the card.  float32 (TF32 off): 1e-4
+# absolute on y, times max |y| where that is above 1, and on the float32
+# final state.  bf16: two bf16 ulps of each y (2**-6 of it) plus 1e-5 near
+# zero; the float32 state at 1e-4 absolute.  The kernel repeats the plain
+# version's float32 operations in the same order (expf, the halving sum
+# over n), so it is expected to agree to the bit (error 0).
+SCAN_F32_TOL = 1e-4
+SCAN_BF16_REL = 2.0 ** -6
 
 
 def _log(*parts) -> None:
@@ -991,18 +1028,19 @@ def phase_serve(torch, record) -> dict:
     return served["launches"]
 
 
-def phase_parity(torch, dev, record, arch, want) -> None:
-    """Phases 6c and 7c: ``arch``'s width at PARITY_LAYERS layers in
-    float32, on the card with the kernels and on the CPU with the plain
-    versions, from the same weights, teacher-forced on the CPU's greedy
-    tokens.  ``want`` is the run's launch count of each kernel it uses; a
-    state with a ``wkv`` field also has its prefill error reported."""
+def phase_parity(torch, dev, record, arch, want, **overrides) -> None:
+    """Phases 6c, 7c and 8c: ``arch``'s width at PARITY_LAYERS layers in
+    float32 (``overrides`` replace fields of that config), on the card with
+    the kernels and on the CPU with the plain versions, from the same
+    weights, teacher-forced on the CPU's greedy tokens.  ``want`` is the
+    run's launch count of each kernel it uses; a state with a ``wkv`` or an
+    ``ssm`` field also has its prefill error reported."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.train.serve_step import pick
-    cfg = dataclasses.replace(get_config(arch), n_layers=PARITY_LAYERS,
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), **dict(
+        dict(n_layers=PARITY_LAYERS, compute_dtype="float32"), **overrides))
     model = api.get_model(cfg)
     card = model.init(torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
     cpu = type(card)(cfg, device="cpu")
@@ -1014,10 +1052,14 @@ def phase_parity(torch, dev, record, arch, want) -> None:
     want_logits, cstate = model.prefill(cpu, tokens, cfg, max_len=max_len)
     got, gstate = model.prefill(card, tokens.to(dev), cfg, max_len=max_len)
     state, state_err = "", None
-    if hasattr(cstate, "wkv"):
-        state_err = float((gstate.wkv.cpu() - cstate.wkv).abs().max())
-        state = (f"; prefill WKV state max err {state_err:.3e} (max |state| "
-                 f"{float(cstate.wkv.abs().max()):.4g})")
+    for field in ("wkv", "ssm"):
+        if hasattr(cstate, field):
+            want_state = getattr(cstate, field)
+            state_err = float((getattr(gstate, field).cpu()
+                               - want_state).abs().max())
+            state = (f"; prefill {field.upper()} state max err "
+                     f"{state_err:.3e} (max |state| "
+                     f"{float(want_state.abs().max()):.4g})")
     errs, compared = [], 0
     for step in range(PARITY_GEN):
         if step:
@@ -1033,8 +1075,9 @@ def phase_parity(torch, dev, record, arch, want) -> None:
                                  f"tolerance")
         compared += int(sure.sum())
     counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    _log(f"parity (card kernels vs CPU plain, f32, {PARITY_LAYERS} layers of "
-         f"{arch}, batch {PARITY_BATCH}, prompt {PARITY_PROMPT}, "
+    _log(f"parity (card kernels vs CPU plain, f32, {cfg.n_layers} layers of "
+         f"{arch}{f' {overrides}' if overrides else ''}, batch "
+         f"{PARITY_BATCH}, prompt {PARITY_PROMPT}, "
          f"{PARITY_GEN} steps): max logit err per step "
          f"{[f'{e:.3e}' for e in errs]}, tolerance {PARITY_TOL}, "
          f"{compared} tokens compared{state}; launches {counts}")
@@ -1282,6 +1325,252 @@ def phase_rwkv_serve(torch, record) -> int:
     return served["launches"]["wkv6"]
 
 
+def _scan_inputs(torch, g, bsz, t, dim, n, dt, delta="spread"):
+    """x, Δ (B, T, dim), b, c (B, T, N) in type dt; a (dim, N) and d (dim,)
+    float32.  x, b, c, d N(0, 1); Δ log-uniform over [1e-3, 1] ("spread"),
+    near 1e-3 ("small") or near 1 ("large"); a = -(1..N) per channel times
+    U(0.5, 1.5)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=g.device)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=g.device)
+    lo, hi = {"spread": (1e-3, 1.0), "small": (8e-4, 1.2e-3),
+              "large": (0.8, 1.2)}[delta]
+    step = torch.exp(math.log(lo) + (math.log(hi) - math.log(lo))
+                     * rand(bsz, t, dim))
+    a = -(torch.arange(1, n + 1, device=g.device, dtype=torch.float32)
+          * (0.5 + rand(dim, 1)))
+    return (randn(bsz, t, dim).to(dt), step.to(dt), randn(bsz, t, n).to(dt),
+            randn(bsz, t, n).to(dt), a.contiguous(), randn(dim))
+
+
+def _scan_check(torch, cname, args, return_state=True) -> dict:
+    """One case of K8 against its plain version, y and (with
+    ``return_state``) the final state; raises past the tolerance."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import (
+        selective_scan, selective_scan_plain)
+    got = selective_scan(*args, return_state=return_state)
+    want = selective_scan_plain(*args, return_state=return_state)
+    torch.cuda.synchronize()
+    (got, gstate), (want, wstate) = (
+        (got, want) if return_state else ((got, None), (want, None)))
+    if got.dtype != want.dtype or got.shape != want.shape or (
+            return_state and (gstate.shape != wstate.shape
+                              or gstate.dtype != torch.float32)):
+        raise AssertionError(f"selective_scan [{cname}]: {got.dtype} "
+                             f"{tuple(got.shape)} != {want.dtype} "
+                             f"{tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    mag = float(want.float().abs().max()) if want.numel() else 0.0
+    if got.dtype == torch.bfloat16:
+        ok = bool((diff <= SCAN_BF16_REL * want.float().abs() + 1e-5).all())
+    else:
+        ok = err <= SCAN_F32_TOL * max(1.0, mag)
+    serr = float((gstate - wstate).abs().max()) if return_state else 0.0
+    ok = ok and serr <= SCAN_F32_TOL
+    exact = bool(torch.equal(got, want) and (
+        not return_state or torch.equal(gstate, wstate)))
+    _log(f"kernel selective_scan [{cname}, {args[0].dtype}, x "
+         f"{tuple(args[0].shape)}, N {args[2].shape[-1]}, state "
+         f"{return_state}] max_abs_err={err:.3e} (max |y| {mag:.4g}) "
+         f"state_max_abs_err={serr:.3e} bit_exact={exact} within_tol={ok}")
+    if not ok:
+        raise AssertionError(f"selective_scan disagrees with its plain "
+                             f"version on {cname}")
+    return dict(case=cname, abs=err, state=serr, exact=exact)
+
+
+def _scan_cost(x, dt, b, c, a, d):
+    """(bytes, operations, exps) of K8: x, Δ and y, b and c, a and d once
+    each, the float32 state once; 5 float32 operations per (b, t, channel,
+    n) and one exp."""
+    bsz, t, dim = x.shape
+    n = b.shape[-1]
+    es = x.element_size()
+    nbytes = (es * (3 * x.numel() + 2 * b.numel())
+              + 4 * (a.numel() + d.numel() + bsz * dim * n))
+    return nbytes, 5 * bsz * t * dim * n, bsz * t * dim * n
+
+
+def phase_mamba_scan(torch, dev, record) -> dict:
+    """Phase 8a: K8 against its plain version on the inputs of every Mamba
+    sublayer of the served Jamba prefill (one superblock at full width,
+    bf16 model, float32 scan inputs), with and without the state, and on
+    edge cases (T = 1, 77 and 0, N = 8 and 16, dim = 200, Δ near 1e-3 and
+    near 1) in bf16 and float32; timed over the served layers' inputs
+    beside its bound and plain version (no single PyTorch call computes
+    the scan); profiler windows over a Jamba prefill and decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.mamba_scan import (
+        selective_scan, selective_scan_plain)
+    from repro_torch.models import api, jamba
+    from repro_torch.train.serve_step import pick
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = jamba.init(gen, cfg)
+    tokens = api.synth_batch(LM_SEED, cfg, LM_BATCH, LM_PROMPT,
+                             device=dev)["tokens"]
+    max_len = LM_PROMPT + 2 * PROFILE_DECODE_STEPS
+    calls = []
+    with _calls(scan_ops, "selective_scan", calls):
+        logits, state = jamba.prefill(params, tokens, cfg, max_len=max_len)
+    torch.cuda.synchronize()
+    if len(calls) != jamba.N_MAMBA * (cfg.n_layers // jamba.SUPER):
+        raise AssertionError("the served Jamba did not call the selective "
+                             "scan once per Mamba sublayer")
+    served = [args for args, _ in calls]
+    results = [_scan_check(torch, f"served Mamba sublayer {i}", args)
+               for i, args in enumerate(served)]
+    results.append(_scan_check(torch, "served Mamba sublayer 0, stateless",
+                               served[0], return_state=False))
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for dt in (torch.bfloat16, torch.float32):
+        for bsz, t, dim, n, delta in ((3, 1, 8192, 16, "spread"),
+                                      (2, 77, 200, 8, "spread"),
+                                      (2, 77, 200, 16, "small"),
+                                      (4, 1000, 512, 16, "large"),
+                                      (4, 1000, 512, 8, "small"),
+                                      (2, 0, 256, 16, "spread")):
+            args = _scan_inputs(torch, g, bsz, t, dim, n, dt, delta)
+            for with_state in (True, False):
+                results.append(_scan_check(
+                    torch, f"T={t} dim {dim} N {n} delta {delta}", args,
+                    with_state))
+
+    def cycled(fn):
+        it = itertools.cycle(served)
+        return lambda: fn(*next(it), return_state=True)
+    ms = _time_ms(torch, cycled(selective_scan), 2 * len(served))
+    plain_ms = _time_ms(torch, cycled(selective_scan_plain), 3, warmup=1)
+    nbytes, nops, nexp = _scan_cost(*served[0])
+    bound_ms, bound_by = _bound_ms(nbytes, nops)
+    _log(f"kernel selective_scan (served, x {tuple(served[0][0].shape)} "
+         f"{served[0][0].dtype}, N {served[0][2].shape[-1]}): {ms:.4f} ms "
+         f"(bound {bound_ms:.4f} ms by {bound_by}: {nbytes} bytes, {nops} "
+         f"operations, {nexp} exps; plain {plain_ms:.4f} ms, library none)")
+    del served, calls
+
+    record["jamba_profile_prefill"] = _profile_window(
+        torch, lambda: jamba.prefill(params, tokens, cfg, max_len=max_len),
+        f"prefill {JAMBA_ARCH} at {JAMBA_LAYERS} layers "
+        f"{LM_BATCH}x{LM_PROMPT}", "chip_smoke_profile_jamba_prefill.txt")
+    nxt = pick(logits)[:, None]
+
+    def decode_steps():
+        nonlocal state, nxt
+        for _ in range(PROFILE_DECODE_STEPS):
+            out, state = jamba.decode_step(params, state, nxt, cfg)
+            nxt = pick(out)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_steps()
+    torch.cuda.synchronize()
+    record["jamba_decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / \
+        PROFILE_DECODE_STEPS
+    _log(f"decode step, {JAMBA_ARCH} at {JAMBA_LAYERS} layers, batch "
+         f"{LM_BATCH}, no profiler: {record['jamba_decode_step_ms']:.3f} ms "
+         f"(host clock, mean of {PROFILE_DECODE_STEPS})")
+    record["jamba_profile_decode"] = _profile_window(
+        torch, decode_steps, f"{PROFILE_DECODE_STEPS} decode steps "
+        f"{JAMBA_ARCH} batch {LM_BATCH}",
+        "chip_smoke_profile_jamba_decode.txt")
+    del params, state
+
+    source, replaces = KERNELS["selective_scan"]
+    head = results[:jamba.N_MAMBA]
+    row = dict(name="selective_scan", route="cuda", source=source,
+               replaces=replaces, launches=0,
+               max_abs_err=max(r["abs"] for r in head), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None,
+               max_state_err_all_cases=max(r["state"] for r in results),
+               bit_exact_all_cases=all(r["exact"] for r in results),
+               bytes=nbytes, ops=nops, exps=nexp)
+    record["mamba_scan_phase"] = dict(row=row, cases=results)
+    return row
+
+
+def _grouped_mm_route(torch, dev) -> dict:
+    """How ``torch._grouped_mm``, the MoE layer's grouped product (hazard
+    H11), runs on this card in bf16 and float32: whether it waits for the
+    card under sync debug mode "error", and its error against the products
+    one group at a time.  The served decode needs bf16 free of host syncs
+    and within two bf16 ulps (2**-6 × max(1, max |out|)) of the per-group
+    products; float32 is reported."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    sizes = torch.tensor([8, 0, 24, 8] * 4, dtype=torch.int32, device=dev)
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    ends = offs.tolist()
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = _randn(torch, g, (ends[-1], 256), dt)
+        w = _randn(torch, g, (16, 256, 128), dt)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch._grouped_mm(x, w, offs=offs)
+            syncs = False
+        except RuntimeError as e:
+            if "synchronizing" not in str(e):
+                raise
+            syncs = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = torch._grouped_mm(x, w, offs=offs).float()
+        want = torch.cat([x[e - n:e].float() @ w[i].float() for i, (e, n) in
+                          enumerate(zip(ends, sizes.tolist()))])
+        err = float((got - want).abs().max())
+        tol = 2 ** -6 * max(1.0, float(want.abs().max()))
+        _log(f"torch._grouped_mm {dt}: host sync under sync debug mode "
+             f"'error': {syncs}; max err against per-group products "
+             f"{err:.3e} (max |out| {float(want.abs().max()):.4g})")
+        out[str(dt)] = dict(host_sync=syncs, max_abs_err=err, tol=tol)
+    bf16 = out[str(torch.bfloat16)]
+    if bf16["host_sync"]:
+        raise AssertionError("torch._grouped_mm waits for the card in bf16: "
+                             "the served MoE decode would sync")
+    if not bf16["max_abs_err"] <= bf16["tol"]:
+        raise AssertionError(f"torch._grouped_mm in bf16 is off the "
+                             f"per-group products by {bf16['max_abs_err']:.3e}"
+                             f" (tolerance {bf16['tol']:.3e})")
+    return out
+
+
+def phase_hybrid_serve(torch, record) -> dict:
+    """Phase 8b: the grouped product's route (``_grouped_mm_route``), then
+    ``serve_lm.serve`` on Jamba at full width over one superblock (7 K8
+    and 1 K6 in the prefill, 1 K7 a decode step, no other kernel), then
+    ``serve_lm.main`` on Qwen2-MoE-A2.7B at its full config (one K6 a layer,
+    one K7 a layer and step), each at batch 8, prompt 1024, 32 tokens, its
+    decode loop under sync debug mode "error".  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import jamba
+    record["grouped_mm"] = _grouped_mm_route(torch, torch.device("cuda"))
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    nb = JAMBA_LAYERS // jamba.SUPER
+    jamba_run = _serve_run(
+        torch, f"{JAMBA_ARCH} at {JAMBA_LAYERS} layers", cfg, LM_BATCH,
+        JAMBA_GEN,
+        lambda: serve_lm.serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                               gen=JAMBA_GEN, seed=LM_SEED),
+        want={"selective_scan": 7 * nb, "flash_attention": nb,
+              "decode_attention": nb * (JAMBA_GEN - 1)})
+    torch.cuda.empty_cache()
+    moe_run = _serve_run(
+        torch, MOE_ARCH, get_config(MOE_ARCH), LM_BATCH, MOE_GEN,
+        lambda: serve_lm.main(["--arch", MOE_ARCH, "--batch", str(LM_BATCH),
+                               "--prompt-len", str(LM_PROMPT), "--gen",
+                               str(MOE_GEN), "--seed", str(LM_SEED)]))
+    record["serve"][JAMBA_ARCH] = jamba_run
+    record["serve"][MOE_ARCH] = moe_run
+    return {"selective_scan": jamba_run["launches"]["selective_scan"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1350,6 +1639,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["wkv6"] = phase_rwkv_serve(torch, record)
     phase_parity(torch, dev, record, RWKV_ARCH, {"wkv6": PARITY_LAYERS})
+    torch.cuda.empty_cache()
+    rows.append(phase_mamba_scan(torch, dev, record))
+    torch.cuda.empty_cache()
+    launches.update(phase_hybrid_serve(torch, record))
+    torch.cuda.empty_cache()
+    phase_parity(torch, dev, record, JAMBA_ARCH, {
+        "selective_scan": 7, "flash_attention": 1,
+        "decode_attention": PARITY_GEN - 1}, **JAMBA_PARITY)
+    phase_parity(torch, dev, record, MOE_ARCH, {
+        "flash_attention": PARITY_LAYERS,
+        "decode_attention": PARITY_LAYERS * (PARITY_GEN - 1)})
 
     for row in rows:
         row["launches"] = launches[row["name"]]

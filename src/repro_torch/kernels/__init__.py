@@ -33,6 +33,9 @@ KERNELS = {
     "wkv6": (
         "src/repro_torch/kernels/csrc/wkv6.cu",
         "src/repro/kernels/rwkv6/rwkv6.py:51"),
+    "selective_scan": (
+        "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "src/repro/kernels/mamba_scan/mamba_scan.py:52"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

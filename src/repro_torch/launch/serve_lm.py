@@ -1,11 +1,20 @@
 """Batched LM serving driver: prefill a prompt batch, decode N tokens a
-request, for the ported families: dense transformers (Qwen, Phi-3) and
-RWKV6.
+request, for the ported families: dense transformers (Qwen, Phi-3), MoE
+transformers (Qwen2-MoE, Qwen3-MoE), RWKV6 and Jamba.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen1.5-0.5b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6-3b \
         --batch 8 --prompt-len 1024 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \
+        --arch qwen2-moe-a2.7b --batch 8 --prompt-len 1024 --gen 32
+
+Jamba v0.1 in full (51.4 B parameters, about 103 GB in bf16) does not fit
+one 80 GB card; :func:`serve` takes a config with its depth cut, one
+superblock of 8 layers at full width::
+
+    serve(dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8),
+          batch=8, prompt_len=1024, gen=32)
 
 It runs on the CUDA card, and raises without one, unless ``--device``
 names another device: ``--device cpu`` runs the kernels' plain PyTorch

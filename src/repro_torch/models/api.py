@@ -1,10 +1,11 @@
 """Uniform model API: family -> (init, prefill, decode_step,
 make_decode_state), and ``synth_batch`` (random batches for smoke runs).
 
-The dense and the ssm (RWKV6) families are ported.  The JAX package's
-``loss_fn`` field and ``train_input_specs`` wait for training; the other
-families wait for their slices of ROADMAP queue 1, item 14, named in the
-error each raises.
+The dense, moe (on the transformer, as in the JAX package), ssm (RWKV6)
+and hybrid (Jamba) families are ported.  The JAX package's ``loss_fn``
+field and ``train_input_specs`` wait for training; the other families wait
+for their slice of ROADMAP queue 1, item 14, named in the error each
+raises.
 """
 from __future__ import annotations
 
@@ -15,13 +16,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import runtime
-from repro_torch.models import layers, rwkv6, transformer
+from repro_torch.models import jamba, layers, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 
 # family -> the slice of ROADMAP queue 1, item 14 that brings it
 WAITING = {
-    "hybrid": "item 14, slice 2 (Jamba: Mamba, its scan kernel K8, and MoE)",
-    "moe": "item 14, slice 2 (moe.py, with Jamba)",
     "encdec": "item 14, slice 4 (the remaining families)",
     "vlm": "item 14, slice 4 (the remaining families)",
 }
@@ -43,14 +42,21 @@ def _rwkv_state(cfg, batch, max_len, device=None):
     return rwkv6.init_state(cfg, batch, device=device)
 
 
+def _jamba_state(cfg, batch, max_len, device=None):
+    return jamba.init_state(cfg, batch, max_len, device=device)
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     fam = cfg.family
-    if fam == "dense":
+    if fam in transformer.FAMILIES:
         return ModelApi(transformer.init, transformer.prefill,
                         transformer.decode_step, _transformer_state)
     if fam == "ssm":
         return ModelApi(rwkv6.init, rwkv6.prefill, rwkv6.decode_step,
                         _rwkv_state)
+    if fam == "hybrid":
+        return ModelApi(jamba.init, jamba.prefill, jamba.decode_step,
+                        _jamba_state)
     if fam in WAITING:
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family is not ported yet (ROADMAP queue "

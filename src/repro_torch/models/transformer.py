@@ -1,25 +1,36 @@
-"""Decoder-only transformer LM, dense family: ``init``, ``prefill`` and
-``decode_step``, in the names of the JAX package's ``models/transformer.py``.
+"""Decoder-only transformer LM, dense and MoE families: ``init``,
+``prefill`` and ``decode_step``, in the names of the JAX package's
+``models/transformer.py``.
 
 The JAX package scans over stacked layer parameters; here each layer is a
 :class:`Block` module in a ``ModuleList`` and the layer loop is a Python
 loop.  The KV cache keeps the stacked (L, B, Hkv, S, hd) layout and is
-written in place.  ``forward`` and ``loss_fn`` wait for training, and the
-MoE and VLM branches for ``moe.py`` and the VLM frontend (ROADMAP queue 1,
-item 14).
+written in place.  The moe family (Qwen2-MoE, Qwen3-MoE) runs here too: a
+layer holds a :class:`~repro_torch.models.moe.MoE` in place of its dense
+MLP when ``cfg.n_experts > 0``.  ``forward`` and ``loss_fn`` wait for
+training, and the VLM branch for the VLM frontend (ROADMAP queue 1, item
+14).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache
 
 
+FAMILIES = ("dense", "moe")
+
+
+def _is_moe(cfg: ModelConfig) -> bool:
+    return cfg.n_experts > 0
+
+
 class Block(nn.Module):
-    """One pre-norm layer: ``ln1``, ``attn``, ``ln2`` and ``mlp``."""
+    """One pre-norm layer: ``ln1``, ``attn``, ``ln2``, and ``mlp`` (a dense
+    SwiGLU) or, for an MoE config, ``moe``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -27,8 +38,20 @@ class Block(nn.Module):
         self.ln1 = layers.param((cfg.d_model,), torch.float32, device, 1.0)
         self.ln2 = layers.param((cfg.d_model,), torch.float32, device, 1.0)
         self.attn = layers.Attention(cfg, device)
-        self.mlp = layers.SwiGLU(cfg.d_model, cfg.d_ff,
-                                 dtype=layers.cdtype(cfg), device=device)
+        if _is_moe(cfg):
+            self.moe = moe.MoE(cfg, device)
+        else:
+            self.mlp = layers.SwiGLU(cfg.d_model, cfg.d_ff,
+                                     dtype=layers.cdtype(cfg), device=device)
+
+    def _mlp(self, x):
+        cfg = self.cfg
+        h = layers.rmsnorm(x, self.ln2, cfg.norm_eps)
+        if _is_moe(cfg):
+            y, _ = moe.moe_apply(self.moe, h, cfg)
+        else:
+            y = layers.swiglu_apply(self.mlp, h)
+        return x + y
 
     def forward(self, x, positions):
         """Prefill: x (B, S, d_model) -> (x, (k, v)), k and v (B, Hkv, S, hd)."""
@@ -36,9 +59,7 @@ class Block(nn.Module):
         h = layers.rmsnorm(x, self.ln1, cfg.norm_eps)
         a, kv = layers.attn_apply(self.attn, h, cfg, positions=positions,
                                   return_kv=True)
-        x = x + a
-        h = layers.rmsnorm(x, self.ln2, cfg.norm_eps)
-        return x + layers.swiglu_apply(self.mlp, h), kv
+        return self._mlp(x + a), kv
 
     def decode(self, x, ks, vs, layer: int, index: int):
         """One token: x (B, 1, d_model); writes the cache at (layer, index)."""
@@ -46,22 +67,20 @@ class Block(nn.Module):
         h = layers.rmsnorm(x, self.ln1, cfg.norm_eps)
         a, _, _ = layers.attn_decode_stacked(self.attn, h, cfg, ks, vs,
                                              layer, index)
-        x = x + a
-        h = layers.rmsnorm(x, self.ln2, cfg.norm_eps)
-        return x + layers.swiglu_apply(self.mlp, h)
+        return self._mlp(x + a)
 
 
 class Transformer(nn.Module):
-    """The dense LM: ``embed``, ``lm_head`` (None when tied), ``layers`` and
-    ``final_norm``; parameters uninitialized until :func:`init` or
-    ``convert.from_reference`` fills them."""
+    """The dense or MoE LM: ``embed``, ``lm_head`` (None when tied),
+    ``layers`` and ``final_norm``; parameters uninitialized until
+    :func:`init` or ``convert.from_reference`` fills them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.n_experts:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family is ported (ROADMAP "
-                f"queue 1, item 14)")
+                f"{cfg.name}: the transformer serves the dense and moe "
+                f"families, not {cfg.family} (ROADMAP queue 1, item 14)")
         self.cfg = cfg
         dt = layers.cdtype(cfg)
         self.embed = layers.param((cfg.vocab, cfg.d_model), dt, device)
@@ -78,7 +97,7 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
     model = Transformer(cfg, device=generator.device)
     for blk in model.layers:
         blk.attn.reset_parameters(generator)
-        blk.mlp.reset_parameters(generator)
+        (blk.moe if _is_moe(cfg) else blk.mlp).reset_parameters(generator)
     for name, t in layers.embed_init(generator, cfg).items():
         getattr(model, name).copy_(t)
     return model

@@ -21,7 +21,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_config, list_archs
 from repro_torch.launch import serve_lm
-from repro_torch.models import api, convert, layers, rwkv6, transformer
+from repro_torch.models import (api, convert, jamba, layers, moe, rwkv6,
+                                 transformer)
 from repro_torch.train import serve_step
 
 LOGIT_TOL = 1e-4
@@ -270,6 +271,19 @@ def test_unported_families_raise():
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 transformer.Transformer(cfg, device="cpu")
             continue
+        if cfg.family == "moe":        # tests/test_torch_moe.py
+            model = api.get_model(cfg)
+            assert model.init is transformer.init
+            assert model.decode_step is transformer.decode_step
+            assert isinstance(transformer.Transformer(cfg, device="cpu")
+                              .layers[0].moe, moe.MoE)
+            continue
+        if cfg.family == "hybrid":     # Jamba: tests/test_torch_mamba.py
+            assert api.get_model(cfg).init is jamba.init
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                transformer.Transformer(cfg, device="cpu")
+            continue
+        assert cfg.family in api.WAITING
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.get_model(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
