@@ -40,8 +40,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       Qwen2.5-14B's GQA shapes (40 query heads over 8 KV heads, hd 128),
       and on ragged lengths (S = 77 and 1000, non-causal, cache lengths 0,
       1 and S); each timed beside its bound, its plain version and
-      ``scaled_dot_product_attention``; and one profiler window each over a
-      prefill and over decode steps;
+      ``scaled_dot_product_attention`` (and its time as a multiple of the
+      latter's); one profiler window each over a prefill and over decode
+      steps; and flash attention's bf16 instance at every head dim: its
+      registers, spills and shared memory a block, and its SASS
+      (``cuobjdump -sass``), which must hold tensor-core instructions
+      (HMMA or HGMMA);
    b. ``serve_lm.main`` at batch 8, prompt 1024 and 512 generated tokens,
       its decode loop under sync debug mode "error", with the kernels'
       launch counts checked (one flash attention per layer, one decode
@@ -92,10 +96,12 @@ profilers' tables to ``chip_smoke_out/chip_smoke_profile*.txt``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -814,7 +820,8 @@ def _attn_timing(torch, kernel, plain, library, calls, cost) -> dict:
         else INT_OPS_PER_S
     bound_ms, bound_by = _bound_ms(nbytes, nops, rate)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=nops)
+                library_ratio=ms / library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, ops=nops)
 
 
 def _served_attention(torch, dev, cfg, max_len):
@@ -845,13 +852,78 @@ def _served_attention(torch, dev, cfg, max_len):
             [a for a, _ in decode_calls])
 
 
-def phase_attention(torch, dev, record) -> list:
+def _flash_tensor_cores(ptxas: str) -> dict:
+    """Flash attention's bf16 instance (``flash_kernel_tc<D>``) at every
+    head dim D: registers and spilled bytes from the compiler's ``-Xptxas
+    -v`` report ``ptxas``, the dynamic shared memory a block takes (from the
+    library), and its count of tensor-core instructions (HMMA or HGMMA) in
+    the library's SASS.  Raises if an instance is missing from either or has
+    no tensor-core instruction."""
+    from repro_torch.kernels import build
+    lib = build.load("flash_attention")
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    def head_dim(symbol):
+        """D of a ``flash_kernel_tc<D>`` symbol; None for any other."""
+        if "flash_kernel_tc" not in symbol:
+            return None
+        return int(re.search(r"ILi(\d+)E", symbol).group(1))
+
+    report, d = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            d = head_dim(m.group(1))
+        elif d is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report.setdefault(d, {})["spill_bytes"] = (int(m[1]) +
+                                                           int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report.setdefault(d, {})["registers"] = int(m[1])
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    mma, d = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            d = head_dim(m.group(1))
+            if d is not None:
+                mma[d] = 0
+        elif d is not None and re.search(r"\bH(G)?MMA\b", line):
+            mma[d] += 1
+    out = {}
+    for d in range(8, 129, 8):
+        r = report.get(d, {})
+        if "registers" not in r or d not in mma:
+            raise AssertionError(f"flash attention bf16 instance for hd {d} "
+                                 f"missing from the ptxas report or the SASS")
+        r.update(smem_bytes=lib.flash_attention_smem_bytes(d, 1),
+                 tensor_core_instructions=mma[d])
+        _log(f"flash_attention bf16 instance hd {d}: {r['registers']} "
+             f"registers, {r.get('spill_bytes', 0)} bytes spilled, "
+             f"{r['smem_bytes']} bytes shared memory a block, "
+             f"{r['tensor_core_instructions']} HMMA/HGMMA in its SASS")
+        if mma[d] == 0:
+            raise AssertionError(f"flash attention's bf16 instance for hd {d} "
+                                 f"has no tensor-core instruction")
+        out[d] = r
+    return out
+
+
+def phase_attention(torch, dev, record, ptxas: str) -> list:
     """Phase 6a: the attention kernels against their plain versions, with
     inputs captured from the served model (its prefill and its first
     decode step, every layer), on the GQA shapes of Qwen2.5-14B and on
     ragged lengths; timed beside their bounds, plain versions and
-    ``scaled_dot_product_attention``; and one profiler window each over a
-    prefill and over decode steps of the served model."""
+    ``scaled_dot_product_attention``; one profiler window each over a
+    prefill and over decode steps of the served model; and flash
+    attention's bf16 instances checked for tensor-core instructions
+    (``ptxas`` is the compiler's report of its build)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.decode_attention import (
@@ -860,6 +932,7 @@ def phase_attention(torch, dev, record) -> list:
         flash_attention, flash_attention_plain)
     from repro_torch.models import transformer
     from repro_torch.train.serve_step import pick
+    tc = _flash_tensor_cores(ptxas)
     cfg = get_config(LM_ARCH)
     max_len = LM_PROMPT + LM_GEN
     params, tokens, cache, first, f_calls, d_calls = _served_attention(
@@ -956,17 +1029,19 @@ def phase_attention(torch, dev, record) -> list:
             _log(f"kernel {name} ({label}, bf16): {r['ms']:.4f} ms (bound "
                  f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-                 f"scaled_dot_product_attention)")
+                 f"scaled_dot_product_attention; kernel/library "
+                 f"{r['library_ratio']:.2f}x)")
         source, replaces = KERNELS[name]
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=0, max_abs_err=errs[name][0], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library_ratio=t["library_ratio"],
             max_abs_err_all_cases=max(errs[name]), gqa_14b=tg))
     record["attention_phase"] = dict(
         rows=rows, flash_errs=errs["flash_attention"],
-        decode_errs=errs["decode_attention"])
+        decode_errs=errs["decode_attention"], flash_bf16_instances=tc)
     return rows
 
 
@@ -1150,7 +1225,8 @@ def phase_phi3(torch, dev, rows, record) -> None:
         _log(f"kernel {name} ({PHI3_ARCH} shapes, bf16): {t['ms']:.4f} ms "
              f"(bound {t['bound_ms']:.4f} ms by {t['bound_by']}, plain "
              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
-             f"scaled_dot_product_attention)")
+             f"scaled_dot_product_attention; kernel/library "
+             f"{t['library_ratio']:.2f}x)")
         row = by_name[name]
         row["phi3"] = t
         row["max_abs_err_all_cases"] = max(row["max_abs_err_all_cases"],
@@ -1626,7 +1702,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows += phase_attention(torch, dev, record)
+    rows += phase_attention(torch, dev, record, logs["flash_attention"])
     torch.cuda.empty_cache()
     launches.update(phase_serve(torch, record))
     phase_parity(torch, dev, record, LM_ARCH, {

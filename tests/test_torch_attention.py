@@ -13,7 +13,13 @@ inputs and differ only in the order of their sums: 1e-4 (times the largest
 output, when that is above 1) in float32; in bfloat16 the two float32
 results may round to neighbouring values, so two bf16 ulps of each output
 (2**-6 of it) plus 1e-5.
+
+K6's bf16 instance runs both products on the tensor cores: scores from bf16
+q and k summed in float32, and P fed to P·V as two bf16 halves (p_hi =
+bf16(p), p_lo = bf16(p - p_hi)).  A CPU test emulates that arithmetic and
+shows it within the card tolerance above, where P as one bf16 is not.
 """
+import math
 import sys
 import types
 
@@ -141,6 +147,76 @@ def test_flash_attention_plain_matches_ref_ragged(ref, s, causal):
     assert _err(got, want) < F32_TOL
 
 
+def _cancelling_qkv(b, hq, hkv, s, d, *, ramp, seed=0):
+    """Keys along one direction, k_j = (1 + ramp·j/S)·k_0, and v of
+    alternating sign, v_j = (-1)^j·u: every output is an alternating sum of
+    smooth probabilities, near zero.  With ramp 0 (equal keys) the
+    probabilities of a row are equal and an even count of keys cancels
+    exactly; with a ramp they differ from key to key."""
+    rng = np.random.default_rng(seed)
+    scale = 1 + ramp * np.arange(s) / s
+    sign = np.where(np.arange(s) % 2 == 0, 1.0, -1.0)
+    k = scale[:, None] * rng.standard_normal(d)[None]
+    v = sign[:, None] * rng.standard_normal(d)[None]
+    q = rng.standard_normal((b, hq, s, d))
+    return [np.ascontiguousarray(a, np.float32) for a in
+            (q, np.broadcast_to(k, (b, hkv, s, d)),
+             np.broadcast_to(v, (b, hkv, s, d)))]
+
+
+def _tensor_core_flash(q, k, v, *, causal=True, split=True, tile=64):
+    """What K6's bf16 instance computes, in plain torch: scores of bf16 q
+    and k summed in float32 and scaled by scale·log2(e), an online softmax
+    over key tiles with exp2, and P·V with P rounded to bf16, as two halves
+    P_hi·V + P_lo·V when ``split`` and as P_hi·V alone otherwise."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    m = torch.full((b, hq, s), -1e30)
+    l = torch.zeros(b, hq, s)
+    acc = torch.zeros(b, hq, s, d)
+    rows = torch.arange(s)
+    for k0 in range(0, s, tile):
+        keys = torch.arange(k0, min(k0 + tile, s))
+        ok = keys[None] <= rows[:, None] if causal else \
+            torch.ones(s, len(keys), dtype=torch.bool)
+        sc = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, keys]) * sl2
+        sc = torch.where(ok, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vf[:, :, keys]
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, :, keys]
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("inputs", ["random", "cancelling"])
+def test_bf16_flash_needs_p_as_two_bf16_halves(inputs):
+    """The numerical argument of K6's bf16 instance, at a served-like shape
+    (B 1, 4 heads, S 256, hd 64): with P as two bf16 halves every output is
+    within the card tolerance of the plain version; with P as one bf16 at
+    least one output is not."""
+    arrays = (_qkv(1, 4, 4, 256, 64) if inputs == "random" else
+              _cancelling_qkv(1, 4, 4, 256, 64, ramp=1.0))
+    q, k, v = _torch(arrays, torch.bfloat16)
+    for causal in (True, False):
+        want = flash_attention_plain(q, k, v, causal=causal)
+        tol = _card_tol(want)
+        split = _tensor_core_flash(q, k, v, causal=causal)
+        single = _tensor_core_flash(q, k, v, causal=causal, split=False)
+        assert split.dtype == torch.bfloat16
+        assert bool(((split.float() - want.float()).abs() <= tol).all())
+        assert bool(((single.float() - want.float()).abs() > tol).any())
+
+
 def test_attention_wrappers_check_inputs():
     q, k, v = _torch(_qkv(1, 4, 2, 16, 16), torch.float32)
     before = dict(kernels.LAUNCHES)
@@ -234,6 +310,57 @@ def test_gpu_flash_attention_matches_plain(cuda, case, causal, dtype):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_attention"] == before + 1
     _assert_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+# Lengths around the edges of K6's 16-row fragments and 64-key tiles.
+TILE_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 129]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 24])
+@pytest.mark.parametrize("s", TILE_LENGTHS)
+def test_gpu_flash_attention_at_tile_edges(cuda, s, d):
+    """K6 against its plain version at S around the tile edges, head dims
+    64 and 24 (24 pads the tensor cores' depth to 32), GQA groups 1 and 5,
+    causal and not, in both types."""
+    for hq, hkv in ((5, 5), (5, 1)):
+        for dtype in DTYPES.values():
+            q, k, v = _torch(_qkv(2, hq, hkv, s, d, seed=s), dtype, cuda)
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                _assert_close(got, flash_attention_plain(q, k, v,
+                                                         causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gpu_flash_attention_rescales_large_scores(cuda, dtype):
+    """q scaled by 50, so the scores are of magnitude about 50: a row's
+    running max rises by tens from key tile to key tile and the
+    accumulator is rescaled each time."""
+    q, k, v = _qkv(2, 4, 2, 1024, 64, seed=3)
+    q, k, v = _torch((50 * q, k, v), DTYPES[dtype], cuda)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _assert_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ramp", [0.0, 1.0])
+def test_gpu_flash_attention_cancelled_rows(cuda, ramp):
+    """Outputs that cancel to near zero (v of alternating sign), held to
+    the 1e-5 floor of the bf16 tolerance: over equal keys (ramp 0) they
+    cancel exactly; over keys whose probabilities differ (ramp 1) one bf16
+    P would miss by up to 2^-8·Σ p|v| (see
+    test_bf16_flash_needs_p_as_two_bf16_halves), two halves do not."""
+    q, k, v = _torch(_cancelling_qkv(2, 4, 2, 1024, 64, ramp=ramp),
+                     torch.bfloat16, cuda)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _assert_close(got, flash_attention_plain(q, k, v, causal=causal))
 
 
 @pytest.mark.gpu
