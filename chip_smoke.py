@@ -12,11 +12,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernels/csrc`` (one ``nvcc`` per source, started together), with the
    compiler's ``-Xptxas -v`` report;
 2. kernels against their plain PyTorch versions, bit for bit, at the
-   paths' shapes and on edge cases, each timed with CUDA events beside its
-   bound, its plain version and, where one exists, a single PyTorch
-   library call: the election scans and the pointer jump with inputs from
-   round 1 of the RMAT scale-20 device-loop solve, the 32-bit scan with
-   inputs from round 1 of the host-loop solve of the same graph, and the
+   paths' shapes and on edge cases, each timed with CUDA events (the host
+   run ahead of the device, see ``_time_ms``) beside its bound, its plain
+   version and, where one exists, a single PyTorch library call: the
+   election scans and the pointer jump with inputs from round 1 of the
+   RMAT scale-20 device-loop solve, the 32-bit scan with inputs from
+   round 1 of the host-loop solve of the same graph, and the
    edge-hash lookup over the one-process hash table of that graph's
    adjacency (its host build timed as set-up);
 3. the main path — ``minimum_spanning_forest(graph, method="boruvka")`` on
@@ -38,14 +39,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       tolerances stated below, in bf16 and float32: on the inputs of every
       layer of the served model's prefill and first decode step, on
       Qwen2.5-14B's GQA shapes (40 query heads over 8 KV heads, hd 128),
-      and on ragged lengths (S = 77 and 1000, non-causal, cache lengths 0,
-      1 and S); each timed beside its bound, its plain version and
+      on ragged lengths (S = 77 and 1000, non-causal, cache lengths 0,
+      1 and S) and, for decode attention, on a mostly empty cache (length
+      33 of S); each timed beside its bound, its plain version and
       ``scaled_dot_product_attention`` (and its time as a multiple of the
       latter's); one profiler window each over a prefill and over decode
-      steps; and flash attention's bf16 instance at every head dim: its
+      steps; flash attention's bf16 instance at every head dim: its
       registers, spills and shared memory a block, and its SASS
       (``cuobjdump -sass``), which must hold tensor-core instructions
-      (HMMA or HGMMA);
+      (HMMA or HGMMA); decode attention's instances at head dims 64, 96
+      and 128, its split plan and rate (bytes over time) at its three
+      shapes, and its wrapper's host time a call;
    b. ``serve_lm.main`` at batch 8, prompt 1024 and 512 generated tokens,
       its decode loop under sync debug mode "error", with the kernels'
       launch counts checked (one flash attention per layer, one decode
@@ -182,19 +186,65 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_SLEEP_CYCLES_PER_MS: list = []
+
+
+def _hold_device(torch, ms: float) -> None:
+    """Enqueue ``torch.cuda._sleep`` for about ``ms`` milliseconds on the
+    current stream (its cycles a millisecond measured once, by events)."""
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        stop.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(stop))
+    torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
+
+
 def _time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+    """Mean device time of one call, by CUDA events around ``iters`` calls,
+    with the host ahead of the device.  The warm-up calls are timed on the
+    host clock; then a ``torch.cuda._sleep`` enqueued before the start event
+    holds the device for twice the host's issue time of the ``iters`` calls
+    (plus 1 ms, at most 2 s), so that the device runs them back to back and
+    the events time its work, not the host's issue of it (for a kernel of
+    a few tens of microseconds the wrapper's host time is of the same
+    order).  A call that waits for the device itself is timed as before."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / warmup
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    _hold_device(torch, min(2 * issue_ms * iters + 1.0, 2000.0))
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds, over ``calls``
+    calls issued while a ``torch.cuda._sleep`` keeps the device busy, so
+    that the host never waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    _hold_device(torch, 50.0)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return host_us
 
 
 def _max_abs_err(torch, got, want) -> int:
@@ -915,15 +965,80 @@ def _flash_tensor_cores(ptxas: str) -> dict:
     return out
 
 
-def phase_attention(torch, dev, record, ptxas: str) -> list:
+def _decode_instances(ptxas: str) -> dict:
+    """Decode attention's instances at head dims 64, 96 and 128 (Qwen1.5,
+    Phi-3, Qwen2.5-14B, Jamba and Qwen2-MoE) in both types: registers,
+    spilled bytes and stack from the compiler's ``-Xptxas -v`` report
+    ``ptxas``, and the dynamic shared memory of a block of 1 and of 8 query
+    heads (from the library).  Raises if an instance is missing."""
+    from repro_torch.kernels.decode_attention.decode_attention import _load
+    lib = _load()
+    report, key = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            m = re.search(r"decode_kernelILi(\d+)E(\w+?)EEv", m.group(1))
+            key = (int(m[1]), "bf16" if "bfloat16" in m[2] else "f32") \
+                if m else None
+        elif key is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                report.setdefault(key, {}).update(
+                    stack_bytes=int(m[1]), spill_bytes=int(m[2]) + int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report.setdefault(key, {})["registers"] = int(m[1])
+    out = {}
+    for d in (64, 96, 128):
+        for ty, bf16 in (("bf16", 1), ("f32", 0)):
+            r = report.get((d, ty), {})
+            if "registers" not in r:
+                raise AssertionError(f"decode attention {ty} instance for hd "
+                                     f"{d} missing from the ptxas report")
+            r.update(smem_1_head=lib.decode_attention_smem_bytes(d, bf16, 1),
+                     smem_8_heads=lib.decode_attention_smem_bytes(d, bf16, 8))
+            _log(f"decode_attention {ty} instance hd {d}: {r['registers']} "
+                 f"registers, {r.get('spill_bytes', 0)} bytes spilled, "
+                 f"{r.get('stack_bytes', 0)} bytes stack, "
+                 f"{r['smem_1_head']} / {r['smem_8_heads']} bytes shared "
+                 f"memory a block of 1 / 8 query heads")
+            out[f"{ty} hd {d}"] = r
+    return out
+
+
+def _decode_split(torch, label, calls, r) -> dict:
+    """K7's split plan at one of its shapes (the first of ``calls``) and
+    the rate it reached there, the bytes of its bound over its time ``r``
+    (from ``_attn_timing``), logged beside the bound and SDPA's time."""
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        sm_count, split_plan)
+    q, k = calls[0][0], calls[0][1]
+    b, hq, d = q.shape
+    chunk, chunks, grid = split_plan(b, hq, k.shape[1], k.shape[2], d,
+                                     sm_count(q.device))
+    gbps = r["bytes"] / r["ms"] / 1e6
+    _log(f"decode_attention split ({label}): chunk {chunk} rows, {chunks} "
+         f"chunks, grid {grid} ({math.prod(grid)} blocks); {gbps:.1f} GB/s "
+         f"({100 * gbps * 1e9 / HBM_BYTES_PER_S:.1f} % of the memory rate); "
+         f"{r['ms']:.4f} ms against its bound {r['bound_ms']:.4f} ms and "
+         f"scaled_dot_product_attention's {r['library_ms']:.4f} ms")
+    return dict(chunk=chunk, chunks=chunks, grid=list(grid),
+                gb_per_s=gbps)
+
+
+def phase_attention(torch, dev, record, ptxas: str,
+                    decode_ptxas: str) -> list:
     """Phase 6a: the attention kernels against their plain versions, with
     inputs captured from the served model (its prefill and its first
     decode step, every layer), on the GQA shapes of Qwen2.5-14B and on
     ragged lengths; timed beside their bounds, plain versions and
     ``scaled_dot_product_attention``; one profiler window each over a
-    prefill and over decode steps of the served model; and flash
-    attention's bf16 instances checked for tensor-core instructions
-    (``ptxas`` is the compiler's report of its build)."""
+    prefill and over decode steps of the served model; flash attention's
+    bf16 instances checked for tensor-core instructions (``ptxas`` is the
+    compiler's report of its build); decode attention's instances at head
+    dims 64, 96 and 128 reported (``decode_ptxas``), its split plan and
+    rate at its shapes, and its wrapper's host time a call."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention.decode_attention import (
@@ -933,6 +1048,7 @@ def phase_attention(torch, dev, record, ptxas: str) -> list:
     from repro_torch.models import transformer
     from repro_torch.train.serve_step import pick
     tc = _flash_tensor_cores(ptxas)
+    k7 = _decode_instances(decode_ptxas)
     cfg = get_config(LM_ARCH)
     max_len = LM_PROMPT + LM_GEN
     params, tokens, cache, first, f_calls, d_calls = _served_attention(
@@ -995,6 +1111,17 @@ def phase_attention(torch, dev, record, ptxas: str) -> list:
                     torch.tensor(lengths, dtype=torch.int32, device=dev))
             decode_cases.append((f"S={s} group {hq // hkv} hd {d} lengths "
                                  f"{lengths}", args, {}))
+    # A mostly empty cache at the served shapes: length 33 of S, so every
+    # chunk of K7's split but the first is empty.
+    g33 = torch.Generator(device=dev).manual_seed(SEED + 33)
+    for dt in (bf16, f32):
+        b, hq, d = dq.shape
+        args = (_randn(torch, g33, (b, hq, d), dt),
+                _randn(torch, g33, dk.shape, dt),
+                _randn(torch, g33, dk.shape, dt),
+                torch.full((b,), 33, dtype=torch.int32, device=dev))
+        decode_cases.append((f"S={dk.shape[2]} length 33 (mostly empty "
+                             f"cache) hd {d}", args, {}))
     errs = {}
     for name, kernel, plain, cases in (
             ("flash_attention", flash_attention, flash_attention_plain,
@@ -1031,6 +1158,13 @@ def phase_attention(torch, dev, record, ptxas: str) -> list:
                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
                  f"scaled_dot_product_attention; kernel/library "
                  f"{r['library_ratio']:.2f}x)")
+        if name == "decode_attention":
+            t["split"] = _decode_split(torch, "served", calls, t)
+            tg["split"] = _decode_split(torch, "qwen2.5-14b shapes", gqa, tg)
+            it = itertools.cycle(calls)
+            t["host_us"] = _host_us(torch, lambda: kernel(*next(it)))
+            _log(f"decode_attention wrapper: {t['host_us']:.1f} us of host "
+                 f"time a call (served shapes, the device kept busy)")
         source, replaces = KERNELS[name]
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1038,10 +1172,13 @@ def phase_attention(torch, dev, record, ptxas: str) -> list:
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             library_ratio=t["library_ratio"],
-            max_abs_err_all_cases=max(errs[name]), gqa_14b=tg))
+            max_abs_err_all_cases=max(errs[name]), gqa_14b=tg,
+            **({"split": t["split"], "host_us": t["host_us"]}
+               if name == "decode_attention" else {})))
     record["attention_phase"] = dict(
         rows=rows, flash_errs=errs["flash_attention"],
-        decode_errs=errs["decode_attention"], flash_bf16_instances=tc)
+        decode_errs=errs["decode_attention"], flash_bf16_instances=tc,
+        decode_instances=k7)
     return rows
 
 
@@ -1222,6 +1359,8 @@ def phase_phi3(torch, dev, rows, record) -> None:
         errs = [_attn_check(torch, name, kernel, plain, *c) for c in cases]
         t = _attn_timing(torch, kernel, plain, library, calls, cost)
         t.update(max_abs_err=errs[0], max_abs_err_all_cases=max(errs))
+        if name == "decode_attention":
+            t["split"] = _decode_split(torch, PHI3_ARCH, calls, t)
         _log(f"kernel {name} ({PHI3_ARCH} shapes, bf16): {t['ms']:.4f} ms "
              f"(bound {t['bound_ms']:.4f} ms by {t['bound_by']}, plain "
              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
@@ -1702,7 +1841,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows += phase_attention(torch, dev, record, logs["flash_attention"])
+    rows += phase_attention(torch, dev, record, logs["flash_attention"],
+                            logs["decode_attention"])
     torch.cuda.empty_cache()
     launches.update(phase_serve(torch, record))
     phase_parity(torch, dev, record, LM_ARCH, {

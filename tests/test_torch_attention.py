@@ -14,11 +14,16 @@ output, when that is above 1) in float32; in bfloat16 the two float32
 results may round to neighbouring values, so two bf16 ulps of each output
 (2**-6 of it) plus 1e-5.
 
+K7 splits the cache into chunks (``split_plan``), one block each, and
+combines the chunks' partial softmax sums; a CPU test emulates that
+arithmetic and holds it to the card tolerance above.
+
 K6's bf16 instance runs both products on the tensor cores: scores from bf16
 q and k summed in float32, and P fed to P·V as two bf16 halves (p_hi =
 bf16(p), p_lo = bf16(p - p_hi)).  A CPU test emulates that arithmetic and
 shows it within the card tolerance above, where P as one bf16 is not.
 """
+import inspect
 import math
 import sys
 import types
@@ -29,8 +34,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention import decode_attention as dec_mod
 from repro_torch.kernels.decode_attention.decode_attention import (
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_plain, split_plan)
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, flash_attention_plain)
@@ -276,6 +282,107 @@ def test_decode_attention_plain_matches_ref_ragged(ref, s):
     assert _err(got, want) < F32_TOL
 
 
+# --- K7's split (split-K flash decoding), emulated on the CPU ----------------
+
+# (B, Hq, Hkv, S, D) of the decode steps the port serves: Qwen1.5-0.5B
+# (cache 1024 + 512), Qwen2.5-14B, Phi-3-mini, Jamba and Qwen2-MoE (cache
+# 1024 + 32), at batch 8 (14B at 4)
+SERVED_DECODE = {"qwen1.5-0.5b": (8, 16, 16, 1536, 64),
+                 "qwen2.5-14b": (4, 40, 8, 1056, 128),
+                 "phi3-mini": (8, 32, 32, 1056, 96),
+                 "jamba": (8, 32, 8, 1056, 128),
+                 "qwen2-moe": (8, 16, 16, 1056, 128)}
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("name", list(SERVED_DECODE))
+def test_split_plan_covers_the_cache(name):
+    """The chunks cover S, a chunk is a whole number of tiles, the grid is
+    (chunks, kv heads x head tiles, B) and fills the card's 132 SMs."""
+    b, hq, hkv, s, d = SERVED_DECODE[name]
+    chunk, chunks, grid = split_plan(b, hq, hkv, s, d, H100_SMS)
+    assert chunk % dec_mod.TILE == 0 and chunk > 0
+    assert (chunks - 1) * chunk < s <= chunks * chunk
+    head_tiles = -(-(hq // hkv) // dec_mod.HEADS_PER_BLOCK)
+    assert grid == (chunks, hkv * head_tiles, b)
+    assert math.prod(grid) >= H100_SMS
+
+
+def test_split_plan_takes_no_length():
+    """The plan is a function of shapes only: the lengths stay on the
+    device, and the served decode loop allows no host read of them."""
+    assert list(inspect.signature(split_plan).parameters) == [
+        "b", "hq", "hkv", "s", "d", "sm_count"]
+
+
+def _split_decode(q, k, v, length, sm_count, scale=None):
+    """What K7 computes, in plain torch: the cache cut by ``split_plan``;
+    in each chunk an online softmax over its 32-row tiles in order (the
+    tile's max and sum, then the rescale) gives the chunk's partial (m, l,
+    acc), an empty chunk's being (-1e30, 0, 0); then the chunks are
+    combined, o = sum_c acc_c e^(m_c - m) / max(sum_c l_c e^(m_c - m),
+    1e-30)."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    group = hq // hkv
+    chunk, chunks, _ = split_plan(b, hq, hkv, s, d, sm_count)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qf = q.float()
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    uniform = length <= 0
+    n = torch.where(uniform, s, length.clamp(max=s))
+    ms, ls, accs = [], [], []
+    for c in range(chunks):
+        hi = n.clamp(max=(c + 1) * chunk)
+        m = torch.full((b, hq), -1e30)
+        l = torch.zeros(b, hq)
+        acc = torch.zeros(b, hq, d)
+        for r0 in range(c * chunk, min((c + 1) * chunk, s), dec_mod.TILE):
+            rows = torch.arange(r0, min(r0 + dec_mod.TILE, s))
+            ok = (rows[None] < hi[:, None])[:, None]             # (B, 1, R)
+            sc = torch.einsum("bhd,bhrd->bhr", qf, kf[:, :, rows]) * scale
+            sc = torch.where(uniform[:, None, None], 0.0, sc)
+            m_new = torch.maximum(m, torch.where(ok, sc, -1e30).amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhr,bhrd->bhd", p, vf[:, :, rows])
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    ms = torch.stack(ms)
+    f = torch.exp(ms - ms.amax(0))
+    den = (torch.stack(ls) * f).sum(0)
+    num = (torch.stack(accs) * f[..., None]).sum(0)
+    return (num / den.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+# (B, Hq, Hkv, S, D, SMs): Qwen1.5-0.5B's served decode, GQA group 5 at
+# hd 128, group 10 (two head tiles) at hd 24 and S 300; each in several
+# chunks on 132 SMs
+SPLIT_CASES = [(6, 16, 16, 1536, 64, 132), (6, 10, 2, 1056, 128, 132),
+               (6, 20, 2, 300, 24, 132)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_decode_emulation_matches_plain(case, dtype):
+    """The split's arithmetic (per-chunk online softmax, empty partials,
+    the combine) against the plain version within the card tolerance, at
+    lengths -1, 0, 1, mid, S and S + 5, one a row; every output finite."""
+    b, hq, hkv, s, d, sms = case
+    assert split_plan(b, hq, hkv, s, d, sms)[1] > 1
+    q, k, v = _torch(_qkv(b, hq, hkv, s, d, seed=s, decode=True),
+                     DTYPES[dtype])
+    length = torch.tensor([-1, 0, 1, s // 2 + 7, s, s + 5], dtype=torch.int32)
+    got = _split_decode(q, k, v, length, sms)
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_close(got, decode_attention_plain(q, k, v, length))
+
+
 # --- the CUDA kernels against their plain versions, on the card -------------
 
 def _card_tol(want: torch.Tensor):
@@ -388,6 +495,124 @@ def test_gpu_decode_attention_reads_a_cache_layer_view(cuda):
     length = torch.tensor([50, 96], dtype=torch.int32, device=cuda)
     got = decode_attention(q, ks[1], vs[1], length)
     _assert_close(got, decode_attention_plain(q, k, v, length))
+
+
+
+# --- K7's split on the card ---------------------------------------------------
+
+def _card_plan(cuda, b, hq, hkv, s, d):
+    return split_plan(b, hq, hkv, s, d, dec_mod.sm_count(cuda))
+
+
+def _decode_check(q, k, v, length):
+    got = decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_close(got, decode_attention_plain(q, k, v, length))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s", [1, 31, 32, 33, "chunk - 1", "chunk",
+                               "chunk + 1", 1536])
+def test_gpu_decode_split_at_chunk_edges(cuda, s, dtype):
+    """S around the tile and the chunk (from the plan at S = 1536), and in
+    each call the lengths -1, 0, 1, chunk, chunk + 1, S and S + 5, where
+    chunk is the plan's at this S: GQA group 5, hd 64."""
+    b, hq, hkv, d = 7, 10, 2, 64
+    if isinstance(s, str):
+        chunk = _card_plan(cuda, b, hq, hkv, 1536, d)[0]
+        s = chunk + {"chunk - 1": -1, "chunk": 0, "chunk + 1": 1}[s]
+    chunk = _card_plan(cuda, b, hq, hkv, s, d)[0]
+    q, k, v = _torch(_qkv(b, hq, hkv, s, d, seed=s, decode=True),
+                     DTYPES[dtype], cuda)
+    length = torch.tensor([-1, 0, 1, chunk, chunk + 1, s, s + 5],
+                          dtype=torch.int32, device=cuda)
+    _decode_check(q, k, v, length)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", [24, 64, 96, 128])
+@pytest.mark.parametrize("group", [1, 5, 10])
+def test_gpu_decode_split_groups_and_head_dims(cuda, group, d, dtype):
+    """GQA groups 1, 5 and 10 (10: two head tiles of a KV head) at hd 24,
+    64, 96 and 128, over a cache of 1536 split into several chunks."""
+    b, hkv, s = 3, 2, 1536
+    assert _card_plan(cuda, b, group * hkv, hkv, s, d)[1] > 1
+    q, k, v = _torch(_qkv(b, group * hkv, hkv, s, d, seed=d + group,
+                          decode=True), DTYPES[dtype], cuda)
+    length = torch.tensor([1536, 1025, 100], dtype=torch.int32, device=cuda)
+    _decode_check(q, k, v, length)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gpu_decode_split_mostly_empty_cache(cuda, dtype):
+    """Length 33 of S 1536 at Qwen1.5-0.5B's served heads: every chunk but
+    the first is empty and writes the empty partial."""
+    b, hq, hkv, s, d = 8, 16, 16, 1536, 64
+    chunk, chunks, _ = _card_plan(cuda, b, hq, hkv, s, d)
+    assert chunks > 1 and chunk > 33
+    q, k, v = _torch(_qkv(b, hq, hkv, s, d, seed=33, decode=True),
+                     DTYPES[dtype], cuda)
+    _decode_check(q, k, v, torch.full((b,), 33, dtype=torch.int32,
+                                      device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gpu_decode_split_rescales_large_scores(cuda, dtype):
+    """q scaled by 50: the chunks' maxima differ by tens, so the combine
+    rescales every partial.  Head dim 64, as K6's test of the same: at hd
+    128 the scores reach several hundred, and two float32 sums of them in
+    different orders (the kernel's, the plain version's, the earlier
+    kernel's) already differ by about 1e-5 on outputs near zero, the floor
+    of the bf16 tolerance."""
+    b, hq, hkv, s, d = 3, 10, 2, 1536, 64
+    q, k, v = _qkv(b, hq, hkv, s, d, seed=50, decode=True)
+    q, k, v = _torch((50 * q, k, v), DTYPES[dtype], cuda)
+    _decode_check(q, k, v, torch.tensor([1536, 1000, 700], dtype=torch.int32,
+                                        device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gpu_decode_split_cancelled_rows(cuda, dtype):
+    """V of alternating sign over equal keys: every p of a row is equal, so
+    an even count of positions cancels to 0 and an odd count leaves v/n;
+    held to the 1e-5 floor of the bf16 tolerance across the chunks."""
+    b, hq, hkv, s, d = 4, 4, 2, 1536, 64
+    q, k, v = _cancelling_qkv(b, hq, hkv, s, d, ramp=0.0)
+    q, k, v = _torch((np.ascontiguousarray(q[:, :, 0]), k, v), DTYPES[dtype],
+                     cuda)
+    _decode_check(q, k, v, torch.tensor([1536, 1025, 1000, 333],
+                                        dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+def test_gpu_decode_runs_without_host_sync(cuda):
+    """The served decode loop runs under sync debug mode "error": K7, its
+    plan, workspace and counters (made afresh here, on a new stream) must
+    not read anything back to the host."""
+    q, k, v = _torch(_qkv(8, 16, 16, 1536, 64, seed=7, decode=True),
+                     torch.bfloat16, cuda)
+    length = torch.tensor([1025, 1, 0, 1536, 33, 700, 1024, 1535],
+                          dtype=torch.int32, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(stream):
+            outs = [decode_attention(q, k, v, length) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    want = decode_attention_plain(q, k, v, length)
+    for got in outs:
+        assert bool(torch.isfinite(got.float()).all())
+        _assert_close(got, want)
 
 
 # Every head dim the kernels are built for: the multiples of 8 up to 128,
