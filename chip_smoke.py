@@ -68,8 +68,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    a. K9 against its plain version on the inputs of every layer of the
       served model's prefill and on edge cases (T = 1, 77 and 0, head dims
       16 and 64, the decay near 0 and near 1), in bf16 and float32, within
-      the tolerances stated below; timed beside its bound and plain
-      version; one profiler window each over a prefill and decode steps;
+      the tolerances stated below and bit for bit; its instances'
+      registers, spills and shared memory; timed beside its bound and
+      plain version; one profiler window each over a prefill and decode
+      steps;
    b. ``serve_lm.main`` at batch 8, prompt 1024 and RWKV_GEN tokens: one K9
       launch per layer, every logit finite;
    c. two layers at its width in float32, card against CPU as in 6c;
@@ -919,20 +921,8 @@ def _flash_tensor_cores(ptxas: str) -> dict:
             return None
         return int(re.search(r"ILi(\d+)E", symbol).group(1))
 
-    report, d = {}, None
-    for line in ptxas.splitlines():
-        m = re.search(r"entry function '([^']+)'", line)
-        if m:
-            d = head_dim(m.group(1))
-        elif d is not None:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                report.setdefault(d, {})["spill_bytes"] = (int(m[1]) +
-                                                           int(m[2]))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                report.setdefault(d, {})["registers"] = int(m[1])
+    report = {d: r for (d, _), r in
+              build.ptxas_resources(ptxas, "flash_kernel_tc").items()}
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run(
         [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
@@ -971,24 +961,10 @@ def _decode_instances(ptxas: str) -> dict:
     spilled bytes and stack from the compiler's ``-Xptxas -v`` report
     ``ptxas``, and the dynamic shared memory of a block of 1 and of 8 query
     heads (from the library).  Raises if an instance is missing."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention.decode_attention import _load
     lib = _load()
-    report, key = {}, None
-    for line in ptxas.splitlines():
-        m = re.search(r"entry function '([^']+)'", line)
-        if m:
-            m = re.search(r"decode_kernelILi(\d+)E(\w+?)EEv", m.group(1))
-            key = (int(m[1]), "bf16" if "bfloat16" in m[2] else "f32") \
-                if m else None
-        elif key is not None:
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m:
-                report.setdefault(key, {}).update(
-                    stack_bytes=int(m[1]), spill_bytes=int(m[2]) + int(m[3]))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                report.setdefault(key, {})["registers"] = int(m[1])
+    report = build.ptxas_resources(ptxas, "decode_kernel")
     out = {}
     for d in (64, 96, 128):
         for ty, bf16 in (("bf16", 1), ("f32", 0)):
@@ -1433,19 +1409,45 @@ def _wkv_cost(r, k, v, w, u):
     return es * (5 * r.numel() + u.numel()) + 4 * bh * d * d, 5 * bh * t * d * d
 
 
-def phase_wkv6(torch, dev, record) -> dict:
+def _wkv6_instances(ptxas: str) -> dict:
+    """K9's instances (head dims 16 and 64, both types): registers, spilled
+    bytes, stack frame and static shared memory a block from the
+    compiler's ``-Xptxas -v`` report ``ptxas``.  Raises if an instance is missing."""
+    from repro_torch.kernels import build
+    report = build.ptxas_resources(ptxas, "wkv6_kernel")
+    out = {}
+    for d in (16, 64):
+        for ty in ("bf16", "f32"):
+            r = report.get((d, ty), {})
+            if "registers" not in r:
+                raise AssertionError(f"wkv6 {ty} instance for hd {d} missing "
+                                     f"from the ptxas report")
+            _log(f"wkv6 {ty} instance hd {d}: {r['registers']} registers, "
+                 f"{r.get('spill_bytes', 0)} bytes spilled, "
+                 f"{r.get('stack_bytes', 0)} bytes stack, "
+                 f"{r.get('smem_bytes', 0)} bytes shared memory a block")
+            out[f"{ty} hd {d}"] = r
+    return out
+
+
+def phase_wkv6(torch, dev, record, ptxas: str) -> dict:
     """Phase 7a: K9 against its plain version on the inputs of every layer
     of the served RWKV6-3B's prefill (bf16; layer 0 also in float32), at
     T = 1, T = 77 (no chunk divides it), T = 0, D = 16 and 64, and w near 0
-    and near 1, in bf16 and float32; timed over the served layers' inputs
-    beside its bound and plain version (no single PyTorch call computes
-    WKV6); one profiler window each over a prefill and over decode steps."""
+    and near 1, in bf16 and float32, within the tolerances and, since K9
+    repeats the plain version's every float32 operation in its order, bit
+    for bit (the phase fails otherwise); its instances' registers, spills
+    and shared memory from the compiler's report ``ptxas``; timed over the
+    served layers' inputs beside its bound and plain version (no single
+    PyTorch call computes WKV6); one profiler window each over a prefill
+    and over decode steps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6.wkv6 import wkv6, wkv6_plain
     from repro_torch.models import api, rwkv6
     from repro_torch.train.serve_step import pick
+    instances = _wkv6_instances(ptxas)
     cfg = get_config(RWKV_ARCH)
     params = rwkv6.init(torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
     tokens = api.synth_batch(LM_SEED, cfg, LM_BATCH, LM_PROMPT,
@@ -1472,6 +1474,10 @@ def phase_wkv6(torch, dev, record) -> dict:
             results.append(_wkv_check(
                 torch, f"T={t} hd {d} w {decay}",
                 _wkv_inputs(torch, g, bh, t, d, dt, decay)))
+    inexact = [f"{r['case']}" for r in results if not r["exact"]]
+    if inexact:
+        raise AssertionError(f"wkv6 is not bit-exact to its plain version "
+                             f"on {inexact}")
 
     def cycled(fn):
         it = itertools.cycle(served)
@@ -1518,7 +1524,7 @@ def phase_wkv6(torch, dev, record) -> dict:
                max_rel_err=max(r["rel"] for r in head),
                max_state_err_all_cases=max(r["state"] for r in results),
                bit_exact_all_cases=all(r["exact"] for r in results),
-               bytes=nbytes, ops=nops)
+               bytes=nbytes, ops=nops, instances=instances)
     record["wkv6_phase"] = dict(row=row, cases=results)
     return row
 
@@ -1851,7 +1857,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_phi3(torch, dev, rows, record)
     torch.cuda.empty_cache()
-    rows.append(phase_wkv6(torch, dev, record))
+    rows.append(phase_wkv6(torch, dev, record, logs["wkv6"]))
     torch.cuda.empty_cache()
     launches["wkv6"] = phase_rwkv_serve(torch, record)
     phase_parity(torch, dev, record, RWKV_ARCH, {"wkv6": PARITY_LAYERS})

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -79,6 +80,35 @@ def build_all(names=SOURCES) -> dict:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {name: library_path(name).with_suffix(".log").read_text()
             for name in names}
+
+
+def ptxas_resources(report: str, kernel: str) -> dict:
+    """Each instance of the kernel template ``kernel`` in a ``-Xptxas -v``
+    report: ``{(D, type): {"registers", "spill_bytes", "stack_bytes",
+    "smem_bytes"}}`` for a symbol ``kernel<D>`` or ``kernel<D, type>``, type
+    "bf16", "f32" or "" (none); the figures the report gives."""
+    out, key = {}, None
+    for line in report.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            m = re.search(kernel + r"ILi(\d+)E(\w*?)EEv", m.group(1))
+            key = None if m is None else (int(m[1]), "bf16" if "bfloat16"
+                                          in m[2] else "f32" if m[2] == "f"
+                                          else "")
+            continue
+        if key is None:
+            continue
+        r = out.setdefault(key, {})
+        for field, pattern in (
+                ("stack_bytes", r"(\d+) bytes stack frame"),
+                ("spill_bytes", r"(\d+) bytes spill stores, (\d+) bytes "
+                                r"spill loads"),
+                ("registers", r"Used (\d+) registers"),
+                ("smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pattern, line)
+            if m:
+                r[field] = sum(int(g) for g in m.groups())
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -38,12 +38,12 @@
 // number of 16-byte pieces, so the 8 rows that 8 lanes read in one 16-byte
 // load fall in distinct banks.  In each warp, lane i scores row i of the
 // tile against its head's q (float32 in shared memory, read as
-// broadcasts; each 16-byte piece of the row summed on its own, then
-// added); the warp keeps the online softmax (m, l) of its head, reduces
-// the tile's max and sum with shuffles, and accumulates P·V from the V rows
-// in shared memory, each lane ceil(D/32) neighbouring columns, p by
-// shuffle.  Every K and V row is read from device memory once for the
-// whole group of query heads.
+// broadcasts; each 16-byte piece of the row summed on its own, the pieces
+// added as a balanced tree); the warp keeps the online softmax (m, l) of
+// its head, reduces the tile's max and sum with shuffles, and accumulates
+// P·V from the V rows in shared memory, each lane ceil(D/32) neighbouring
+// columns, p by shuffle.  Every K and V row is read from device memory once
+// for the whole group of query heads.
 //
 // Combine.  Each warp writes its head's partial for the chunk (m, l and
 // acc of D floats) to a float32 workspace of B·Hq·chunks·(D + 2) floats
@@ -133,6 +133,33 @@ __device__ __forceinline__ void piece(const __nv_bfloat16* p, float* out) {
     const float2 f = __bfloat1622float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
+  }
+}
+
+// q·k over N pieces of E elements from k's row kr and q's qh (float32 in
+// shared memory): each piece summed on its own, a chain of fmaf from 0 in
+// the order of its elements, and the pieces added as a balanced tree, the
+// first N/2 pieces' sum plus the other's.  The tree keeps a score's error
+// near that of one rounding at its size, where the pieces added in order
+// gave large scores an error that grew with their count (fault F2).
+template <int N, int E, typename T>
+__device__ __forceinline__ float score(const T* kr, const float* qh) {
+  if constexpr (N == 1) {
+    float kv[E];
+    piece(kr, kv);
+    float part = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      const float4 qq = *reinterpret_cast<const float4*>(qh + e);
+      part = fmaf(qq.x, kv[e], part);
+      part = fmaf(qq.y, kv[e + 1], part);
+      part = fmaf(qq.z, kv[e + 2], part);
+      part = fmaf(qq.w, kv[e + 3], part);
+    }
+    return part;
+  } else {
+    constexpr int H = N / 2;
+    return score<H, E>(kr, qh) + score<N - H, E>(kr + H * E, qh + H * E);
   }
 }
 
@@ -253,29 +280,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kt = ring + st * 2 * L::TILE_ELEMS;
     const T* vt = kt + L::TILE_ELEMS;
 
-    // Lane i scores row r0 + i; each 16-byte piece of the row is summed on
-    // its own and then added, so no sum runs over more than D/4 terms.
+    // Lane i scores row r0 + i.
     const bool ok = r0 + lane < hi;
-    float sc = 0.f;
-    if (!uniform) {
-      const T* kr = kt + lane * L::LD;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += L::E) {
-        float kv[L::E];
-        piece(kr + d0, kv);
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < L::E; e += 4) {
-          const float4 qq = *reinterpret_cast<const float4*>(qh + d0 + e);
-          part = fmaf(qq.x, kv[e], part);
-          part = fmaf(qq.y, kv[e + 1], part);
-          part = fmaf(qq.z, kv[e + 2], part);
-          part = fmaf(qq.w, kv[e + 3], part);
-        }
-        sc += part;
-      }
-      sc *= scale;
-    }
+    const float sc =
+        uniform ? 0.f : score<L::PIECES, L::E>(kt + lane * L::LD, qh) * scale;
 
     float mx = ok ? sc : NEG_INF;
 #pragma unroll

@@ -22,6 +22,15 @@ K6's bf16 instance runs both products on the tensor cores: scores from bf16
 q and k summed in float32, and P fed to P·V as two bf16 halves (p_hi =
 bf16(p), p_lo = bf16(p - p_hi)).  A CPU test emulates that arithmetic and
 shows it within the card tolerance above, where P as one bf16 is not.
+
+At head dim 128 with q scaled by 50 (fault F2 in ROADMAP.md) the scores
+reach about 160, where a float32 ulp is 1.5e-5, and the float32 plain
+versions themselves differ from exact attention by about the 1e-5 floor on
+outputs that cancel between two keys; there the kernels are held to the
+same card tolerance against attention computed in float64
+(``_attention_f64``).  A CPU test models K7's order of a score's sums (a
+chain of fused multiply-adds within each 16-byte piece, the pieces added
+as a balanced tree) against that reference.
 """
 import inspect
 import math
@@ -397,6 +406,120 @@ def _assert_close(got, want):
     assert bool(((got.float() - want.float()).abs() <= _card_tol(want)).all())
 
 
+def _print_margin(label, got, want):
+    """Print the largest |got - want| over the card tolerance, the margin
+    of an F2 case (``pytest -rA`` shows it for passing tests too)."""
+    ratio = (got.float() - want.float()).abs() / _card_tol(want)
+    print(f"F2 {label}: largest err/tol {float(ratio.max()):.4f}")
+
+
+def _attention_f64(q, k, v, *, causal=False, length=None):
+    """Masked softmax attention from the kernels' inputs, computed in
+    float64 and rounded to q's type: K6's (q (B, Hq, S, D), ``causal``) or,
+    with ``length``, K7's (q (B, Hq, D), cache positions >= length masked,
+    a row with length 0 averaging V as in the plain version).  The plain
+    versions compute in float32; this is the reference the float32 sums of
+    both the kernel and the plain version are held to."""
+    qd, kd, vd = (z.double() for z in (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    kd = kd.repeat_interleave(group, dim=1)
+    vd = vd.repeat_interleave(group, dim=1)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if length is None:
+        s = q.shape[2]
+        logits = torch.einsum("bhqd,bhkd->bhqk", qd, kd) * scale
+        if causal:
+            mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+            logits = torch.where(mask, logits, -1e30)
+        return torch.einsum("bhqk,bhkd->bhqd", logits.softmax(-1),
+                            vd).to(q.dtype)
+    s = k.shape[2]
+    logits = torch.einsum("bhd,bhkd->bhk", qd, kd) * scale
+    mask = (torch.arange(s, device=q.device)[None, None, :]
+            < length.to(q.device)[:, None, None])
+    logits = torch.where(mask, logits, -1e30)
+    return torch.einsum("bhk,bhkd->bhd", logits.softmax(-1), vd).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_float64_reference_matches_plain_flash(causal):
+    """The float64 reference against K6's plain version, float32 inputs of
+    ordinary scale, at hd 128 and a GQA group of 2: within the float32 card
+    tolerance, so the two compute the same attention."""
+    q, k, v = _torch(_qkv(2, 4, 2, 77, 128, seed=128), torch.float32)
+    want = _attention_f64(q, k, v, causal=causal)
+    assert want.dtype == torch.float32 and want.shape == q.shape
+    _assert_close(flash_attention_plain(q, k, v, causal=causal), want)
+
+
+def test_float64_reference_matches_plain_decode():
+    """The same for K7's plain version, lengths 0 (V averaged), 1, mid and
+    S at hd 128 and a GQA group of 5."""
+    q, k, v = _torch(_qkv(4, 10, 2, 96, 128, seed=129, decode=True),
+                     torch.float32)
+    length = torch.tensor([0, 1, 50, 96], dtype=torch.int32)
+    want = _attention_f64(q, k, v, length=length)
+    assert want.dtype == torch.float32 and want.shape == q.shape
+    _assert_close(decode_attention_plain(q, k, v, length), want)
+
+
+def _decode_scores(q, k, *, tree=True):
+    """K7's raw scores q·k (B, Hq, S) as float32 values in float64
+    tensors: each 16-byte piece of a row (8 bf16 or 4 float32 elements) a
+    chain of fused multiply-adds from 0, the pieces added as a balanced
+    tree (the first half's sum plus the second's) or, with ``tree`` False,
+    in order.  A fused multiply-add is modelled in float64 (the product of
+    two float32 values is exact there) and then rounded to float32."""
+    def f32(x):
+        return x.float().double()
+    e = 16 // q.element_size()
+    group = q.shape[1] // k.shape[1]
+    qd = q.double()[:, :, None, :]
+    kd = k.double().repeat_interleave(group, dim=1)
+    pieces = []
+    for p0 in range(0, q.shape[-1], e):
+        part = torch.zeros(kd.shape[:3], dtype=torch.float64)
+        for i in range(p0, p0 + e):
+            part = f32(qd[..., i] * kd[..., i] + part)
+        pieces.append(part)
+
+    def pair(xs):
+        if len(xs) == 1:
+            return xs[0]
+        h = len(xs) // 2
+        return f32(pair(xs[:h]) + pair(xs[h:]))
+    if tree:
+        return pair(pieces)
+    total = pieces[0]
+    for x in pieces[1:]:
+        total = f32(total + x)
+    return total
+
+
+def test_decode_score_order_meets_float64_at_hd128():
+    """Fault F2: at hd 128 with q scaled by 50 (the case of
+    ``test_gpu_decode_split_hd128_large_scores_against_float64``), raw
+    scores reach about 1800, where a float32 ulp is 1.2e-4.  Summed in K7's
+    order, the outputs, softmax and all else taken in float64, meet the
+    float64 reference within the card tolerance in bf16; the same pieces
+    added in order, as K7 added them before, miss it."""
+    b, hq, hkv, s, d = 3, 10, 2, 1536, 128
+    q, k, v = _qkv(b, hq, hkv, s, d, seed=50, decode=True)
+    q, k, v = _torch((50 * q, k, v), torch.bfloat16)
+    length = torch.tensor([1536, 1000, 700], dtype=torch.int32)
+    want = _attention_f64(q, k, v, length=length)
+    mask = torch.arange(s)[None, None, :] < length[:, None, None]
+    vd = v.double().repeat_interleave(hq // hkv, dim=1)
+    scale = float(np.float32(1.0 / math.sqrt(d)))
+
+    def out(raw):
+        x = torch.where(mask, (raw * scale).float().double(), -1e30)
+        return torch.einsum("bhk,bhkd->bhd", x.softmax(-1), vd).to(q.dtype)
+    _assert_close(out(_decode_scores(q, k)), want)
+    with pytest.raises(AssertionError):
+        _assert_close(out(_decode_scores(q, k, tree=False)), want)
+
+
 # (B, Hq, Hkv, S, D): ragged lengths, Qwen1.5-0.5B's heads at its prompt,
 # Qwen2.5-14B's GQA (40 q heads over 8 KV heads, hd 128), the smoke widths
 GPU_FLASH = [(2, 4, 2, 77, 64), (1, 4, 4, 1000, 64), (2, 16, 16, 1024, 64),
@@ -452,6 +575,26 @@ def test_gpu_flash_attention_rescales_large_scores(cuda, dtype):
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         _assert_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gpu_flash_attention_hd128_large_scores_against_float64(cuda, dtype):
+    """The shapes of the test above at head dim 128, q scaled by 50, causal
+    and not: held to the same card tolerance against attention computed in
+    float64 from the same inputs (``_attention_f64``), not against the
+    float32 plain version, whose own sums differ from it by about the 1e-5
+    floor on outputs near zero."""
+    q, k, v = _qkv(2, 4, 2, 1024, 128, seed=3)
+    q, k, v = _torch((50 * q, k, v), DTYPES[dtype], cuda)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = _attention_f64(q, k, v, causal=causal)
+        _print_margin(f"K6 {dtype} causal={causal}", got, want)
+        _print_margin(f"K6 plain {dtype} causal={causal}",
+                      flash_attention_plain(q, k, v, causal=causal), want)
+        _assert_close(got, want)
 
 
 @pytest.mark.gpu
@@ -574,6 +717,26 @@ def test_gpu_decode_split_rescales_large_scores(cuda, dtype):
     q, k, v = _torch((50 * q, k, v), DTYPES[dtype], cuda)
     _decode_check(q, k, v, torch.tensor([1536, 1000, 700], dtype=torch.int32,
                                         device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gpu_decode_split_hd128_large_scores_against_float64(cuda, dtype):
+    """The shapes and ragged lengths of the test above at head dim 128, q
+    scaled by 50, held to the card tolerance against attention computed in
+    float64 from the same inputs (``_attention_f64``)."""
+    b, hq, hkv, s, d = 3, 10, 2, 1536, 128
+    q, k, v = _qkv(b, hq, hkv, s, d, seed=50, decode=True)
+    q, k, v = _torch((50 * q, k, v), DTYPES[dtype], cuda)
+    length = torch.tensor([1536, 1000, 700], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    want = _attention_f64(q, k, v, length=length)
+    _print_margin(f"K7 {dtype}", got, want)
+    _print_margin(f"K7 plain {dtype}",
+                  decode_attention_plain(q, k, v, length), want)
+    _assert_close(got, want)
 
 
 @pytest.mark.gpu

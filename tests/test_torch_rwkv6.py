@@ -20,11 +20,17 @@ dense LM's tolerance (``test_torch_lm.py``).  On the card, K9 against its
 plain version: 1e-4 absolute in float32, on the output and the final
 state; in bf16 the output's max |got - want| / max |want| at 1e-2, since
 the output grows with T and one bf16 ulp of it can be several units, and
-the float32 state at 1e-4 absolute.
+the float32 state at 1e-4 absolute.  K9 repeats its plain version's float32
+operations in their order, so beside those tolerances it is also held equal
+to it bit for bit; a CPU test models the kernel's row-to-thread map and its
+reduction order (the tiling read from ``csrc/wkv6.cu``) against
+``ref.halving_sum``.
 """
 import dataclasses
+import re
 import sys
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -189,6 +195,93 @@ def test_halving_sum_is_a_sum_in_a_fixed_order():
     # the tree of 4: (x0 + x2) + (x1 + x3)
     y = torch.tensor([[1e8, 1.0, -1e8, 1.0]], dtype=torch.float32)[..., None]
     assert float(wkv_ref.halving_sum(y)) == 2.0
+
+
+def _built_tiles() -> dict:
+    """{D: (M, C, JB, CHUNK)}: the tiling ``csrc/wkv6.cu`` is built with."""
+    src = (Path(kernels.__file__).parent / "csrc" / "wkv6.cu").read_text()
+    found = re.findall(r"struct Tile<(\d+)> \{\s*static constexpr int "
+                       r"M = (\d+), C = (\d+), JB = (\d+), CHUNK = (\d+);",
+                       src)
+    return {int(d): tuple(int(x) for x in t) for d, *t in found}
+
+
+def _kernel_sum(p, m_rows, *, contiguous=False):
+    """Sum of p (BH, D, D) over dim 1 in the kernel's order.  Row i is
+    staged at residue i % R, slot i // R (R = D / M residues of M slots);
+    the threads of residue ri read its slots 0..M-1 and so hold rows
+    ri + R·m.  Each thread adds row m + M/2 to row m as the rows come and
+    halves its M/2 sums in place; then node i of the R residues' nodes adds
+    node i + h, i < h, for h = R/2 .. 1.  ``contiguous`` gives residue ri
+    rows ri·M .. ri·M + M - 1 instead: a map the halving tree does not
+    allow."""
+    d = p.shape[1]
+    r = d // m_rows
+    staged = {(i % r) * m_rows + i // r: i for i in range(d)}
+    nodes = []
+    for ri in range(r):
+        rows = ([ri * m_rows + m for m in range(m_rows)] if contiguous else
+                [staged[ri * m_rows + m] for m in range(m_rows)])
+        q = [p[:, i] for i in rows[:m_rows // 2]]
+        for m in range(m_rows // 2, m_rows):
+            q[m - m_rows // 2] = q[m - m_rows // 2] + p[:, rows[m]]
+        h = m_rows // 4
+        while h >= 1:
+            q = [q[m] + q[m + h] for m in range(h)] + q[h:]
+            h //= 2
+        nodes.append(q[0])
+    h = r // 2
+    while h >= 1:
+        nodes = [nodes[i] + nodes[i + h] for i in range(h)] + nodes[h:]
+        h //= 2
+    return nodes[0]
+
+
+def test_wkv6_kernel_tiles_are_read():
+    tiles = _built_tiles()
+    assert set(tiles) == {16, 64}
+    for d, (m, c, jb, chunk) in tiles.items():
+        r, lanes = d // m, jb // c
+        assert m % 4 == 0 and r & (r - 1) == 0 and r <= 32
+        assert c in (1, 2, 4) and d % jb == 0 and jb % c == 0
+        assert (32 % lanes == 0 or lanes % 32 == 0) and r * lanes % 32 == 0
+        assert chunk > 0
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_wkv6_kernel_reduction_order_is_the_halving_tree(d):
+    """The kernel's row-to-thread map and reduction order, at the tiling
+    it is built with, give ``ref.halving_sum`` bit for bit on terms spread
+    over twelve decades (where another order rounds otherwise, as the
+    contiguous map shows)."""
+    m_rows = _built_tiles()[d][0]
+    rng = np.random.default_rng(d)
+    p = torch.from_numpy((rng.standard_normal((5, d, d)) * 10.0 ** rng.uniform(
+        -6, 6, (5, d, d))).astype(np.float32))
+    want = wkv_ref.halving_sum(p)
+    assert torch.equal(_kernel_sum(p, m_rows), want)
+    assert not torch.equal(_kernel_sum(p, m_rows, contiguous=True), want)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_wkv6_kernel_model_matches_plain(d):
+    """The recurrence with the kernel's reduction order, step by step, is
+    ``wkv6_plain`` bit for bit: output and final state, bf16 and float32."""
+    m_rows = _built_tiles()[d][0]
+    for dt in (torch.float32, torch.bfloat16):
+        r, k, v, w, u = (torch.from_numpy(a).to(dt)
+                         for a in _wkv_inputs(3, 9, d, seed=d + 1))
+        want, wstate = wkv6_plain(r, k, v, w, u, return_state=True)
+        rf, kf, vf, wf, uf = (z.float() for z in (r, k, v, w, u))
+        s = torch.zeros(3, d, d)
+        outs = []
+        for t in range(9):
+            kv = kf[:, t, :, None] * vf[:, t, None, :]
+            outs.append(_kernel_sum((s + uf[:, :, None] * kv) *
+                                    rf[:, t, :, None], m_rows))
+            s = wf[:, t, :, None] * s + kv
+        assert torch.equal(torch.stack(outs, 1).to(dt), want)
+        assert torch.equal(s, wstate)
 
 
 def test_wkv6_wrapper_checks_inputs():
@@ -409,6 +502,30 @@ def test_gpu_wkv6_matches_plain(cuda, case, dtype):
         assert abs_err <= CARD_F32_TOL
     else:
         assert rel_err <= CARD_BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GPU_WKV)
+def test_gpu_wkv6_bit_exact(cuda, case, dtype):
+    """K9 equals its plain version bit for bit, output and final state."""
+    bh, t, d, decay = case
+    args = [torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+            for a in _wkv_inputs(bh, t, d, seed=t, decay=decay)]
+    got, gstate = wkv6(*args, return_state=True)
+    want, wstate = wkv6_plain(*args, return_state=True)
+    assert torch.equal(got, want) and torch.equal(gstate, wstate)
+
+
+@pytest.mark.gpu
+def test_gpu_wkv6_bit_exact_at_served_shape(cuda):
+    """RWKV6-3B's served prefill shape: batch 8 × 40 heads, T 1024, D 64,
+    bf16, seeded inputs."""
+    args = [torch.from_numpy(a).to(cuda, torch.bfloat16)
+            for a in _wkv_inputs(320, 1024, 64, seed=22)]
+    got, gstate = wkv6(*args, return_state=True)
+    want, wstate = wkv6_plain(*args, return_state=True)
+    assert torch.equal(got, want) and torch.equal(gstate, wstate)
 
 
 @pytest.mark.gpu
