@@ -19,7 +19,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    RMAT scale-20 device-loop solve, the 32-bit scan with inputs from
    round 1 of the host-loop solve of the same graph, and the
    edge-hash lookup over the one-process hash table of that graph's
-   adjacency (its host build timed as set-up);
+   adjacency packed into 16-byte records (its host build and the pack
+   timed as set-up), beside the entry that takes the three arrays and
+   packs them before each launch;
 3. the main path — ``minimum_spanning_forest(graph, method="boruvka")`` on
    a Graph500-style RMAT graph of scale 20 (average degree 32, fixed seed)
    with ``use_pallas=True`` under both round bodies, each forest held
@@ -28,8 +30,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. the legacy host loop (``round_loop="host"``) on the same graph with and
    without the 32-bit scan kernel, each forest held against the oracle,
    beside the device loop's medians; and the edge-hash lookup path
-   (``edge_hash.ops.lookup``) over every directed edge and as many misses,
-   its answers checked against the adjacency;
+   (``edge_hash.ops.lookup`` in the table packed once) over every directed
+   edge and as many misses, its answers checked against the adjacency;
 5. a small RMAT scale-10 sweep over every knob the port exposes, both round
    loops, each forest held against Kruskal and against the same solve on
    the CPU;
@@ -78,9 +80,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 8. Jamba v0.1 and MoE, the Mamba selective scan K8:
    a. K8 against its plain version on the inputs of every Mamba sublayer
       of the served Jamba prefill (one superblock at full width) and on
-      edge cases (T = 1, 77 and 0, N = 8 and 16, dim = 200, Δ near 1e-3
-      and near 1), in bf16 and float32, with and without the final state,
-      within the tolerances stated below; timed beside its bound and plain
+      edge cases (T = 1, 31, 32, 33, 77, 1000 and 0, N = 8 and 16, dim =
+      200, 512 and 8192, Δ near 1e-3 and near 1), in bf16 and float32,
+      with and without the final state, within the tolerances stated below
+      and, since K8 repeats the plain version's every float32 operation in
+      its order, bit for bit (the phase fails otherwise); its instances'
+      registers, spills and shared memory; timed beside its bound (the
+      largest of the bytes' time, the exps' on the special-function units
+      and the float32 operations' issue, at the card's SM clock) and plain
       version; profiler windows over a Jamba prefill and decode steps;
    b. ``torch._grouped_mm``, MoE's grouped product, checked free of host
       syncs in bf16 and held against per-group products (float32's
@@ -460,79 +467,130 @@ def _hash_inputs(graph):
 
 
 def _hash_cases(torch, dev):
-    """Edge cases for the lookup: (name, (h_lv, h_u, h_pos, q_lv, q_u))."""
-    import numpy as np
-    from repro_torch.kernels.edge_hash import ops as hash_ops
-    from repro_torch.kernels.edge_hash.ref import colliding_pairs
-    rng = np.random.default_rng(SEED)
-
-    def case(name, lv, u, tsize, q_lv, q_u):
-        table = hash_ops.build_table(lv, u, np.arange(lv.size, dtype=np.int32),
-                                     tsize)
-        return (name, tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                            for a in (*table, np.asarray(q_lv, np.int32),
-                                      np.asarray(q_u, np.int32))))
-
-    lv, u = colliding_pairs(100, 1021, 17)
-    yield case("chain longer than max_probes", lv, u, 1021,
-               np.concatenate([lv, [5]]), np.concatenate([u, [0]]))
-    lv, u = colliding_pairs(100, 1021, 1000)
-    yield case("wrap-around at the end of the table", lv, u, 1021,
-               np.concatenate([lv, [5]]), np.concatenate([u, [0]]))
-    lv = rng.integers(0, 50, 40).astype(np.int32)
-    u = rng.permutation(1000)[:40].astype(np.int32)
-    yield case("table of 64 slots", lv, u, 64,
-               np.concatenate([lv, lv + 1]), np.concatenate([u, u]))
-    lv = rng.integers(0, 1 << 16, 5000).astype(np.int32)
-    u = rng.permutation(1 << 20)[:5000].astype(np.int32)
-    q = np.array([-1, -1, 0, 7], np.int32)
-    yield case("queries of -1", lv, u, int(5000 * 4.23) | 1,
-               np.concatenate([lv, q]), np.concatenate([u, q[::-1]]))
+    """Edge cases for the lookup (``edge_hash/ref.edge_cases``), the table
+    packed: (name, (records, q_lv, q_u))."""
+    from repro_torch.kernels.edge_hash import ref as hash_ref
+    from repro_torch.kernels.edge_hash.edge_hash import pack_records
+    for name, arrays in hash_ref.edge_cases(SEED):
+        h_lv, h_u, h_pos, q_lv, q_u = (torch.from_numpy(a).to(dev)
+                                       for a in arrays)
+        yield name, (pack_records(h_lv, h_u, h_pos), q_lv, q_u)
 
 
-def phase_hash(torch, dev, graph, record):
+def _hash_plain(records, q_lv, q_u):
+    """K5's plain version on a packed table: unpack, then probe."""
+    from repro_torch.kernels.edge_hash import ref as hash_ref
+    from repro_torch.kernels.edge_hash.edge_hash import hash_lookup_plain
+    return hash_lookup_plain(*hash_ref.unpack(records), q_lv, q_u)
+
+
+def _resources(ptxas: str, kernel: str, keys) -> dict:
+    """A kernel's instances ``keys`` ((D, type) as ``build.ptxas_resources``
+    gives them): registers, spilled bytes, stack frame and static shared
+    memory a block from the compiler's ``-Xptxas -v`` report ``ptxas``,
+    logged.  Raises if an instance is missing."""
+    from repro_torch.kernels import build
+    report = build.ptxas_resources(ptxas, kernel)
+    out = {}
+    for key in keys:
+        r = report.get(key, {})
+        label = f"{kernel} {key[1]} {key[0]}".strip() if key[0] else kernel
+        if "registers" not in r:
+            raise AssertionError(f"{label} missing from the ptxas report")
+        _log(f"{label}: {r['registers']} registers, "
+             f"{r.get('spill_bytes', 0)} bytes spilled, "
+             f"{r.get('stack_bytes', 0)} bytes stack, "
+             f"{r.get('smem_bytes', 0)} bytes shared memory a block")
+        out[label] = r
+    return out
+
+
+def phase_hash(torch, dev, graph, record, ptxas: str):
     """Phase 2, the edge-hash lookup: the host build of the one-process
-    table (set-up, timed), then the kernel against its plain version on
-    every hit and miss query and on edge cases.  Returns the row and the
-    device inputs for the lookup path."""
+    table and its pack into 16-byte records on the card (set-up, both
+    timed; the pack kernel held byte for byte to ``ref.pack``), then the
+    kernel on the packed table against its plain version on every hit and
+    miss query and on edge cases, and the three-array
+    entry (which packs before each launch) against it; the kernel's
+    registers, spills and shared memory from the compiler's report
+    ``ptxas``.  Returns the row and the device inputs for the lookup
+    path."""
     from repro_torch.kernels.edge_hash import ops as hash_ops
     from repro_torch.kernels.edge_hash import ref as hash_ref
     from repro_torch.kernels.edge_hash.edge_hash import (
-        hash_lookup, hash_lookup_plain)
+        hash_lookup, hash_lookup_records, pack_records)
+    instances = _resources(ptxas, "records_kernel", [(0, "")])
     t0 = time.perf_counter()
     lv, u, pos, tsize, q_lv, q_u = _hash_inputs(graph)
     t_layout = time.perf_counter() - t0
     t0 = time.perf_counter()
     table = hash_ops.build_table(lv, u, pos, tsize)
     t_build = time.perf_counter() - t0
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in table)
+    ql, qu = (torch.from_numpy(a).to(dev) for a in (q_lv, q_u))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = pack_records(*arrays)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    if not torch.equal(records, hash_ref.pack(*arrays)):
+        raise AssertionError("pack_records disagrees with ref.pack")
+    pack_ms = _time_ms(torch, lambda: pack_records(*arrays), 5, warmup=1)
+    stack_ms = _time_ms(torch, lambda: hash_ref.pack(*arrays), 3, warmup=1)
+    pack_bytes = 4 * tsize * (3 + hash_ref.RECORD_WORDS)
     _log(f"hash table: {lv.size} entries in {tsize} slots, layout "
-         f"{t_layout:.2f} s, host build {t_build:.2f} s (set-up)")
-    dev_in = tuple(torch.from_numpy(a).to(dev) for a in (*table, q_lv, q_u))
-    probes = hash_ref.probe_counts(*dev_in)
-    traffic = hash_ref.probe_traffic(*dev_in)
+         f"{t_layout:.2f} s, host build {t_build:.2f} s, pack into records "
+         f"{t_pack:.4f} s wall, {pack_ms:.4f} ms on the card (set-up; "
+         f"{pack_bytes} bytes, bound "
+         f"{_bound_ms(pack_bytes, 0)[0]:.4f} ms; ref.pack's torch.stack "
+         f"{stack_ms:.4f} ms)")
+    probes = hash_ref.probe_counts(*arrays, ql, qu)
+    traffic = hash_ref.probe_traffic(*arrays, ql, qu)
     Q = q_lv.size
     mean_probes = traffic["probes"] / Q
     _log(f"hash lookup: {Q} queries, mean probes {mean_probes:.4f}, max "
          f"{int(probes.max())}; table reads {traffic}")
     # The least bytes: each query word read and each answer written once,
-    # and each 32-byte table sector the probes need read once (h_pos and
-    # h_lv at every probed slot, h_u only where h_lv matches).  Beside it,
-    # the bytes of a lookup that shares no sector between queries.
+    # and each 32-byte table sector the probes need read once, in the
+    # layout that needs fewer: three arrays (h_pos and h_lv at every probed
+    # slot, h_u only where h_lv matches) or records (every probed slot's
+    # record).  Beside them, the bytes of a lookup that shares no sector
+    # between queries, in each layout.
     sector = 32
-    least = Q * 12 + sector * (2 * traffic["union_lv"] + traffic["union_u"])
-    chain = Q * 12 + sector * (2 * traffic["chain_lv"] + traffic["chain_u"])
+    least = {"arrays": Q * 12 + sector * (2 * traffic["union_lv"]
+                                          + traffic["union_u"]),
+             "records": Q * 12 + sector * traffic["union_rec"]}
+    chain = {"arrays": Q * 12 + sector * (2 * traffic["chain_lv"]
+                                          + traffic["chain_u"]),
+             "records": Q * 12 + sector * traffic["chain_rec"]}
     row = _kernel_row(
-        torch, "hash_lookup", hash_lookup, hash_lookup_plain, dev_in, None,
-        least, 6 * traffic["probes"], list(_hash_cases(torch, dev)))
-    chain_ms = _bound_ms(chain, 0)[0]
-    _log(f"kernel hash_lookup: bytes {least} (each sector once), "
-         f"{chain} ({chain_ms:.4f} ms) with no sector shared between "
-         f"queries")
+        torch, "hash_lookup", hash_lookup_records, _hash_plain,
+        (records, ql, qu), None, min(least.values()), 6 * traffic["probes"],
+        list(_hash_cases(torch, dev)))
+    three = hash_lookup(*arrays, ql, qu)
+    if not torch.equal(three, hash_lookup_records(records, ql, qu)):
+        raise AssertionError("hash_lookup on the three arrays disagrees "
+                             "with the kernel on the packed table")
+    three_ms = _time_ms(torch, lambda: hash_lookup(*arrays, ql, qu), 20)
+    bounds = {f"{kind}_{layout}_bound_ms": _bound_ms(b[layout], 0)[0]
+              for kind, b in (("least", least), ("no_sharing", chain))
+              for layout in b}
+    _log(f"kernel hash_lookup: bytes each sector once {least} "
+         f"(bounds {bounds['least_arrays_bound_ms']:.4f} / "
+         f"{bounds['least_records_bound_ms']:.4f} ms), with no sector "
+         f"shared between queries {chain} (bounds "
+         f"{bounds['no_sharing_arrays_bound_ms']:.4f} / "
+         f"{bounds['no_sharing_records_bound_ms']:.4f} ms); the three-array "
+         f"entry, pack included: {three_ms:.4f} ms")
     row.update(mean_probes=mean_probes, table_slots=tsize,
-               host_build_s=t_build, table_reads=traffic,
-               no_sharing_bound_ms=chain_ms)
+               host_build_s=t_build, pack_s=t_pack, pack_ms=pack_ms,
+               pack_stack_ms=stack_ms,
+               three_array_ms=three_ms, table_reads=traffic,
+               no_sharing_bound_ms=bounds["no_sharing_records_bound_ms"],
+               instances=instances, **bounds)
     record["hash_phase"] = dict(row=row, layout_s=t_layout)
-    return row, dict(table=dev_in[:3], q_lv=dev_in[3], q_u=dev_in[4],
+    del arrays, three
+    return row, dict(records=records, q_lv=ql, q_u=qu,
                      lv=torch.from_numpy(lv).to(dev),
                      u=torch.from_numpy(u).to(dev), hits=lv.size)
 
@@ -705,15 +763,16 @@ def phase_host_solves(torch, graph, oracle, record) -> int:
 
 
 def phase_lookup(torch, inputs, record) -> int:
-    """Phase 4: the edge-hash lookup path, ``edge_hash.ops.lookup``, over
-    every hit and miss query; each answer is checked against the
-    adjacency.  Returns the kernel's launches."""
+    """Phase 4: the edge-hash lookup path, ``edge_hash.ops.lookup`` in the
+    table packed once in phase 2, over every hit and miss query; each
+    answer is checked against the adjacency.  Returns the kernel's
+    launches."""
     from repro_torch import kernels
     from repro_torch.kernels.edge_hash import ops as hash_ops
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = hash_ops.lookup(inputs["table"], inputs["q_lv"], inputs["q_u"],
+    got = hash_ops.lookup(inputs["records"], inputs["q_lv"], inputs["q_u"],
                           use_pallas=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1409,27 +1468,6 @@ def _wkv_cost(r, k, v, w, u):
     return es * (5 * r.numel() + u.numel()) + 4 * bh * d * d, 5 * bh * t * d * d
 
 
-def _wkv6_instances(ptxas: str) -> dict:
-    """K9's instances (head dims 16 and 64, both types): registers, spilled
-    bytes, stack frame and static shared memory a block from the
-    compiler's ``-Xptxas -v`` report ``ptxas``.  Raises if an instance is missing."""
-    from repro_torch.kernels import build
-    report = build.ptxas_resources(ptxas, "wkv6_kernel")
-    out = {}
-    for d in (16, 64):
-        for ty in ("bf16", "f32"):
-            r = report.get((d, ty), {})
-            if "registers" not in r:
-                raise AssertionError(f"wkv6 {ty} instance for hd {d} missing "
-                                     f"from the ptxas report")
-            _log(f"wkv6 {ty} instance hd {d}: {r['registers']} registers, "
-                 f"{r.get('spill_bytes', 0)} bytes spilled, "
-                 f"{r.get('stack_bytes', 0)} bytes stack, "
-                 f"{r.get('smem_bytes', 0)} bytes shared memory a block")
-            out[f"{ty} hd {d}"] = r
-    return out
-
-
 def phase_wkv6(torch, dev, record, ptxas: str) -> dict:
     """Phase 7a: K9 against its plain version on the inputs of every layer
     of the served RWKV6-3B's prefill (bf16; layer 0 also in float32), at
@@ -1447,7 +1485,8 @@ def phase_wkv6(torch, dev, record, ptxas: str) -> dict:
     from repro_torch.kernels.rwkv6.wkv6 import wkv6, wkv6_plain
     from repro_torch.models import api, rwkv6
     from repro_torch.train.serve_step import pick
-    instances = _wkv6_instances(ptxas)
+    instances = _resources(ptxas, "wkv6_kernel", [
+        (d, ty) for d in (16, 64) for ty in ("bf16", "f32")])
     cfg = get_config(RWKV_ARCH)
     params = rwkv6.init(torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
     tokens = api.synth_batch(LM_SEED, cfg, LM_BATCH, LM_PROMPT,
@@ -1549,15 +1588,16 @@ def phase_rwkv_serve(torch, record) -> int:
 def _scan_inputs(torch, g, bsz, t, dim, n, dt, delta="spread"):
     """x, Δ (B, T, dim), b, c (B, T, N) in type dt; a (dim, N) and d (dim,)
     float32.  x, b, c, d N(0, 1); Δ log-uniform over [1e-3, 1] ("spread"),
-    near 1e-3 ("small") or near 1 ("large"); a = -(1..N) per channel times
-    U(0.5, 1.5)."""
+    near 1e-3 ("small"), near 1 ("large") or over [1e-3, 100] ("wide":
+    exps that underflow to subnormals and zero); a = -(1..N) per channel
+    times U(0.5, 1.5)."""
     def randn(*shape):
         return torch.randn(shape, generator=g, device=g.device)
 
     def rand(*shape):
         return torch.rand(shape, generator=g, device=g.device)
     lo, hi = {"spread": (1e-3, 1.0), "small": (8e-4, 1.2e-3),
-              "large": (0.8, 1.2)}[delta]
+              "large": (0.8, 1.2), "wide": (1e-3, 100.0)}[delta]
     step = torch.exp(math.log(lo) + (math.log(hi) - math.log(lo))
                      * rand(bsz, t, dim))
     a = -(torch.arange(1, n + 1, device=g.device, dtype=torch.float32)
@@ -1615,14 +1655,42 @@ def _scan_cost(x, dt, b, c, a, d):
     return nbytes, 5 * bsz * t * dim * n, bsz * t * dim * n
 
 
-def phase_mamba_scan(torch, dev, record) -> dict:
+def _sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _scan_bound(torch, nbytes: int, nops: int, nexp: int) -> dict:
+    """K8's bound, the largest of three times: the bytes at the memory
+    rate; the exps on the special-function units, 16 a clock an SM; the 5
+    float32 operations an element that cannot be fused, 128 a clock an SM;
+    both at the card's highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _sm_clock_hz()
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ex2": nexp / (16 * sms * clock) * 1e3,
+             "float32 issue": nops / (128 * sms * clock) * 1e3}
+    by = max(terms, key=terms.get)
+    return dict(bound_ms=terms[by], bound_by="bytes" if by == "bytes"
+                else "operations", terms_ms=terms, term=by, sms=sms,
+                sm_clock_hz=clock)
+
+
+def phase_mamba_scan(torch, dev, record, ptxas: str) -> dict:
     """Phase 8a: K8 against its plain version on the inputs of every Mamba
     sublayer of the served Jamba prefill (one superblock at full width,
     bf16 model, float32 scan inputs), with and without the state, and on
-    edge cases (T = 1, 77 and 0, N = 8 and 16, dim = 200, Δ near 1e-3 and
-    near 1) in bf16 and float32; timed over the served layers' inputs
-    beside its bound and plain version (no single PyTorch call computes
-    the scan); profiler windows over a Jamba prefill and decode steps."""
+    edge cases (T = 1, 31, 32, 33, 77, 1000 and 0, N = 8 and 16, dim =
+    200, 512 and 8192, Δ near 1e-3, near 1 and up to 100) in bf16 and
+    float32, bit for bit (the phase fails otherwise); its instances'
+    registers, spills and shared memory from the compiler's report
+    ``ptxas``; timed over the served layers' inputs beside its bound and
+    plain version (no single PyTorch call computes the scan); profiler
+    windows over a Jamba prefill and decode steps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.mamba_scan import ops as scan_ops
@@ -1630,6 +1698,8 @@ def phase_mamba_scan(torch, dev, record) -> dict:
         selective_scan, selective_scan_plain)
     from repro_torch.models import api, jamba
     from repro_torch.train.serve_step import pick
+    instances = _resources(ptxas, "scan_kernel", [
+        (n, ty) for n in (8, 16) for ty in ("bf16", "f32")])
     cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     params = jamba.init(gen, cfg)
@@ -1651,16 +1721,25 @@ def phase_mamba_scan(torch, dev, record) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     for dt in (torch.bfloat16, torch.float32):
         for bsz, t, dim, n, delta in ((3, 1, 8192, 16, "spread"),
+                                      (2, 31, 8192, 16, "spread"),
+                                      (2, 32, 200, 8, "large"),
+                                      (2, 33, 8192, 8, "small"),
                                       (2, 77, 200, 8, "spread"),
                                       (2, 77, 200, 16, "small"),
                                       (4, 1000, 512, 16, "large"),
                                       (4, 1000, 512, 8, "small"),
+                                      (2, 1000, 200, 16, "wide"),
+                                      (2, 77, 8192, 8, "wide"),
                                       (2, 0, 256, 16, "spread")):
             args = _scan_inputs(torch, g, bsz, t, dim, n, dt, delta)
             for with_state in (True, False):
                 results.append(_scan_check(
                     torch, f"T={t} dim {dim} N {n} delta {delta}", args,
                     with_state))
+    inexact = [r["case"] for r in results if not r["exact"]]
+    if inexact:
+        raise AssertionError(f"selective_scan is not bit-exact to its plain "
+                             f"version on {inexact}")
 
     def cycled(fn):
         it = itertools.cycle(served)
@@ -1668,11 +1747,15 @@ def phase_mamba_scan(torch, dev, record) -> dict:
     ms = _time_ms(torch, cycled(selective_scan), 2 * len(served))
     plain_ms = _time_ms(torch, cycled(selective_scan_plain), 3, warmup=1)
     nbytes, nops, nexp = _scan_cost(*served[0])
-    bound_ms, bound_by = _bound_ms(nbytes, nops)
+    bound = _scan_bound(torch, nbytes, nops, nexp)
+    bound_ms, bound_by = bound["bound_ms"], bound["bound_by"]
+    terms = ", ".join(f"{k} {v:.4f} ms" for k, v in bound["terms_ms"].items())
     _log(f"kernel selective_scan (served, x {tuple(served[0][0].shape)} "
          f"{served[0][0].dtype}, N {served[0][2].shape[-1]}): {ms:.4f} ms "
-         f"(bound {bound_ms:.4f} ms by {bound_by}: {nbytes} bytes, {nops} "
-         f"operations, {nexp} exps; plain {plain_ms:.4f} ms, library none)")
+         f"(bound {bound_ms:.4f} ms by {bound['term']}: {terms}, from "
+         f"{nbytes} bytes, {nops} operations, {nexp} exps, {bound['sms']} "
+         f"SMs at {bound['sm_clock_hz'] / 1e9:.3f} GHz; plain "
+         f"{plain_ms:.4f} ms, library none)")
     del served, calls
 
     record["jamba_profile_prefill"] = _profile_window(
@@ -1710,7 +1793,9 @@ def phase_mamba_scan(torch, dev, record) -> dict:
                library_ms=None,
                max_state_err_all_cases=max(r["state"] for r in results),
                bit_exact_all_cases=all(r["exact"] for r in results),
-               bytes=nbytes, ops=nops, exps=nexp)
+               bytes=nbytes, ops=nops, exps=nexp,
+               bound_terms_ms=bound["terms_ms"], sms=bound["sms"],
+               sm_clock_hz=bound["sm_clock_hz"], instances=instances)
     record["mamba_scan_phase"] = dict(row=row, cases=results)
     return row
 
@@ -1833,7 +1918,8 @@ def main() -> int:
     rows = phase_kernels(torch, dev, graph, bundle, record)
     del bundle
     rows.append(phase_scan32(torch, dev, graph, record))
-    hash_row, hash_inputs = phase_hash(torch, dev, graph, record)
+    hash_row, hash_inputs = phase_hash(torch, dev, graph, record,
+                                       logs["edge_hash"])
     rows.append(hash_row)
     torch.cuda.empty_cache()
     launches = phase_solves(torch, graph, oracle, record)
@@ -1862,7 +1948,7 @@ def main() -> int:
     launches["wkv6"] = phase_rwkv_serve(torch, record)
     phase_parity(torch, dev, record, RWKV_ARCH, {"wkv6": PARITY_LAYERS})
     torch.cuda.empty_cache()
-    rows.append(phase_mamba_scan(torch, dev, record))
+    rows.append(phase_mamba_scan(torch, dev, record, logs["mamba_scan"]))
     torch.cuda.empty_cache()
     launches.update(phase_hybrid_serve(torch, record))
     torch.cuda.empty_cache()

@@ -83,18 +83,20 @@ def build_all(names=SOURCES) -> dict:
 
 
 def ptxas_resources(report: str, kernel: str) -> dict:
-    """Each instance of the kernel template ``kernel`` in a ``-Xptxas -v``
-    report: ``{(D, type): {"registers", "spill_bytes", "stack_bytes",
+    """Each instance of the kernel ``kernel`` in a ``-Xptxas -v`` report:
+    ``{(D, type): {"registers", "spill_bytes", "stack_bytes",
     "smem_bytes"}}`` for a symbol ``kernel<D>`` or ``kernel<D, type>``, type
-    "bf16", "f32" or "" (none); the figures the report gives."""
+    "bf16", "f32" or "" (none), and ``(0, "")`` for a kernel that is no
+    template; the figures the report gives."""
     out, key = {}, None
     for line in report.splitlines():
         m = re.search(r"entry function '([^']+)'", line)
         if m:
-            m = re.search(kernel + r"ILi(\d+)E(\w*?)EEv", m.group(1))
-            key = None if m is None else (int(m[1]), "bf16" if "bfloat16"
-                                          in m[2] else "f32" if m[2] == "f"
-                                          else "")
+            m = re.search(r"\d" + kernel + r"(?:ILi(\d+)E(\w*?)EEv|E)",
+                          m.group(1))
+            key = None if m is None else (0, "") if m[1] is None else (
+                int(m[1]), "bf16" if "bfloat16" in m[2] else "f32"
+                if m[2] == "f" else "")
             continue
         if key is None:
             continue

@@ -4,6 +4,10 @@ Every query lane probes the table in lock-step; a lane freezes at a hit
 (the slot's ``(lv, u)`` equals the query) or at an empty slot
 (``h_pos < 0``), and the loop ends once every lane is frozen or after
 ``max_probes`` probes.  A lane still unresolved then returns -1.
+
+The kernel reads the table as records: :func:`pack` lays the three arrays
+out as one ``(T, 4)`` int32 tensor of ``(lv, u, pos, 0)``, 16 bytes a slot,
+and :func:`unpack` gives the arrays back.
 """
 from __future__ import annotations
 
@@ -12,7 +16,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.ghs_state import hash_slot
+from repro_torch.core.ghs_state import _build_hash_table, hash_slot
+
+RECORD_WORDS = 4                 # int32 words of one slot's record
+
+
+def pack(h_lv, h_u, h_pos) -> torch.Tensor:
+    """The table as records: ``(T, 4)`` int32 rows ``(lv, u, pos, 0)``,
+    contiguous, on the arrays' device (a fresh allocation, so 16-byte
+    aligned)."""
+    return torch.stack([h_lv, h_u, h_pos, torch.zeros_like(h_pos)], dim=1)
+
+
+def unpack(records: torch.Tensor):
+    """The three arrays ``(h_lv, h_u, h_pos)`` of a table of records."""
+    return tuple(records[:, k].contiguous() for k in range(3))
 
 
 def _probe(h_lv, h_u, h_pos, q_lv, q_u, done0, max_probes, visit=None):
@@ -59,14 +77,16 @@ def probe_counts(h_lv, h_u, h_pos, q_lv, q_u, *,
 
 
 SECTOR_WORDS = 8                 # int32 words in one 32-byte memory sector
+SECTOR_RECORDS = SECTOR_WORDS // RECORD_WORDS   # records in one sector
 
 
 def probe_traffic(h_lv, h_u, h_pos, q_lv, q_u, *,
                   max_probes: int = 64) -> dict:
-    """The table reads a lookup needs, in 32-byte sectors of each array.
+    """The table reads a lookup needs, in 32-byte sectors, in each layout.
 
-    Every probe reads ``h_pos`` and ``h_lv`` at its slot; ``h_u`` only
-    where ``h_lv`` matches the query.  Two counts:
+    Three arrays: every probe reads ``h_pos`` and ``h_lv`` at its slot;
+    ``h_u`` only where ``h_lv`` matches the query.  Records: every probe
+    reads its slot's record.  Two counts of each:
 
     * ``chain_*``: per query, a sector counted once while consecutive
       probes of its chain stay inside it (the traffic of a lookup that
@@ -74,23 +94,28 @@ def probe_traffic(h_lv, h_u, h_pos, q_lv, q_u, *,
     * ``union_*``: distinct sectors over all queries (each table word read
       once at most: the least any lookup must read).
 
-    Each is a count of sectors of one array (``lv`` stands for ``h_pos``
-    and ``h_lv``, which are read at the same slots).  Also ``probes`` (the
-    total) and ``u_reads`` (probes that read ``h_u``).  Sectors are
-    ``slot // SECTOR_WORDS``: each array starts on a sector boundary.
+    ``lv`` and ``u`` count sectors of one array (``lv`` stands for
+    ``h_pos`` and ``h_lv``, which are read at the same slots); ``rec``
+    counts sectors of the records.  Also ``probes`` (the total) and
+    ``u_reads`` (probes that read ``h_u``).  Sectors are ``slot //
+    SECTOR_WORDS`` of an array and ``slot // SECTOR_RECORDS`` of the
+    records: each array starts on a sector boundary.
     """
     dev = q_lv.device
-    nsec = (h_lv.shape[0] + SECTOR_WORDS - 1) // SECTOR_WORDS
+    per_sector = {"lv": SECTOR_WORDS, "u": SECTOR_WORDS,
+                  "rec": SECTOR_RECORDS}
     last = {k: torch.full(q_lv.shape, -1, dtype=torch.int64, device=dev)
-            for k in ("lv", "u")}
-    seen = {k: torch.zeros(nsec, dtype=torch.bool, device=dev)
-            for k in ("lv", "u")}
+            for k in per_sector}
+    seen = {k: torch.zeros((h_lv.shape[0] + w - 1) // w, dtype=torch.bool,
+                           device=dev) for k, w in per_sector.items()}
     tot = {k: torch.zeros((), dtype=torch.int64, device=dev)
-           for k in ("probes", "u_reads", "chain_lv", "chain_u")}
+           for k in ("probes", "u_reads", "chain_lv", "chain_u",
+                     "chain_rec")}
 
     def visit(idx, active, lv_match):
-        sec = idx // SECTOR_WORDS
-        for k, reads in (("lv", active), ("u", active & lv_match)):
+        for k, reads in (("lv", active), ("u", active & lv_match),
+                         ("rec", active)):
+            sec = idx // per_sector[k]
             tot[f"chain_{k}"] += (reads & (sec != last[k])).sum()
             last[k] = torch.where(reads, sec, last[k])
             seen[k][sec[reads]] = True
@@ -99,7 +124,7 @@ def probe_traffic(h_lv, h_u, h_pos, q_lv, q_u, *,
 
     _probe(h_lv, h_u, h_pos, q_lv, q_u, None, max_probes, visit)
     out = {k: int(v) for k, v in tot.items()}
-    out.update(union_lv=int(seen["lv"].sum()), union_u=int(seen["u"].sum()))
+    out.update({f"union_{k}": int(v.sum()) for k, v in seen.items()})
     return out
 
 
@@ -112,6 +137,37 @@ def colliding_pairs(length: int, tsize: int, home: int):
     lv = np.full(u.shape, 5, np.int32)
     sel = hash_slot(lv, u, tsize) == home
     return lv[sel][:length], u[sel][:length]
+
+
+def edge_cases(seed: int):
+    """The lookup's edge cases: ``[(name, (h_lv, h_u, h_pos, q_lv, q_u))]``,
+    numpy int32 (entry i at position i): a chain longer than 64 probes, one
+    that wraps past the end of the table, a table of 64 slots, and queries
+    of -1 (the empty slot's words) among hits and misses."""
+    rng = np.random.default_rng(seed)
+
+    def case(name, lv, u, tsize, q_lv, q_u):
+        table = _build_hash_table(lv, u, np.arange(lv.size, dtype=np.int32),
+                                  tsize)
+        return name, (*table, np.asarray(q_lv, np.int32),
+                      np.asarray(q_u, np.int32))
+
+    lv, u = colliding_pairs(100, 1021, 17)
+    out = [case("chain longer than max_probes", lv, u, 1021,
+                np.concatenate([lv, [5]]), np.concatenate([u, [0]]))]
+    lv, u = colliding_pairs(100, 1021, 1000)
+    out.append(case("wrap-around at the end of the table", lv, u, 1021,
+                    np.concatenate([lv, [5]]), np.concatenate([u, [0]])))
+    lv = rng.integers(0, 50, 40).astype(np.int32)
+    u = rng.permutation(1000)[:40].astype(np.int32)
+    out.append(case("table of 64 slots", lv, u, 64,
+                    np.concatenate([lv, lv + 1]), np.concatenate([u, u])))
+    lv = rng.integers(0, 1 << 16, 5000).astype(np.int32)
+    u = rng.permutation(1 << 20)[:5000].astype(np.int32)
+    q = np.array([-1, -1, 0, 7], np.int32)
+    out.append(case("queries of -1", lv, u, int(5000 * 4.23) | 1,
+                    np.concatenate([lv, q]), np.concatenate([u, q[::-1]])))
+    return out
 
 
 def hash_lookup(h_lv, h_u, h_pos, q_lv, q_u, max_probes: int = 64):

@@ -20,7 +20,10 @@ below 16, where a float32 ulp is at most 1.9e-6.  Models: logits and
 states within 1e-4, the dense LM's tolerance (``test_torch_lm.py``).  On
 the card, K8 against its plain version: 1e-4 absolute in float32 on y
 (times max |y| where that is above 1) and on the state; in bf16 two bf16
-ulps of y (2**-6 of it, plus 1e-5 near zero), the float32 state at 1e-4.
+ulps of y (2**-6 of it, plus 1e-5 near zero), the float32 state at 1e-4;
+and, since K8 repeats the plain version's every float32 operation in its
+order, bit for bit.  CPU tests model the kernel's order of the sum over
+n against ``halving_sum``.
 """
 import dataclasses
 import sys
@@ -36,6 +39,7 @@ from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.mamba_scan.mamba_scan import (
     selective_scan, selective_scan_plain)
+from repro_torch.kernels.rwkv6.ref import halving_sum
 from repro_torch.launch import serve_lm
 from repro_torch.models import api, convert, jamba, mamba
 from repro_torch.train import serve_step
@@ -96,11 +100,11 @@ def cuda():
 def _scan_inputs(bsz, t, dim, n, *, seed=0, dt="spread"):
     """x, dt (B, T, dim), b, c (B, T, N), a (dim, N), d (dim,), float32
     numpy.  ``dt``: "spread" (log-uniform in [1e-3, 1]), "small" (near
-    1e-3) or "large" (near 1)."""
+    1e-3), "large" (near 1) or "wide" (log-uniform in [1e-3, 100])."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((bsz, t, dim))
     lo, hi = {"spread": (1e-3, 1.0), "small": (8e-4, 1.2e-3),
-              "large": (0.8, 1.2)}[dt]
+              "large": (0.8, 1.2), "wide": (1e-3, 100.0)}[dt]
     delta = np.exp(rng.uniform(np.log(lo), np.log(hi), (bsz, t, dim)))
     b, c = (rng.standard_normal((bsz, t, n)) for _ in range(2))
     a = -np.tile(np.arange(1, n + 1), (dim, 1)) * rng.uniform(0.5, 1.5,
@@ -190,6 +194,58 @@ def test_scan_step_matches_reference_and_scan(ref):
                                        return_state=True)
     _close(torch.stack(ys, 1), y.numpy(), SCAN_TOL)
     _close(h, state.numpy(), SCAN_TOL)
+
+
+def _kernel_sum(p):
+    """Sum of p (R, N) over dim 1 in K8's order: the step's b and c come as
+    the halves n < N/2 and n >= N/2, which the first level adds pairwise
+    (h = N/2); then the halving tree of the N/2 nodes left."""
+    h = p.shape[1] // 2
+    q = [p[:, m] + p[:, m + h] for m in range(h)]
+    h //= 2
+    while h >= 1:
+        q = [q[m] + q[m + h] for m in range(h)]
+        h //= 2
+    return q[0]
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_scan_kernel_reduction_order_is_the_halving_tree(n):
+    """The kernel's order of the sum over n gives ``halving_sum`` bit for
+    bit on terms spread over twelve decades (where another order, left to
+    right, rounds otherwise)."""
+    rng = np.random.default_rng(n)
+    p = torch.from_numpy((rng.standard_normal((4096, n)) * 10.0 ** rng.uniform(
+        -6, 6, (4096, n))).astype(np.float32))
+    want = halving_sum(p)
+    assert torch.equal(_kernel_sum(p), want)
+    left = p[:, 0]
+    for m in range(1, n):
+        left = left + p[:, m]
+    assert not torch.equal(left, want)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_scan_kernel_model_matches_plain(n):
+    """The recurrence with the kernel's sum order, step by step, is
+    ``selective_scan_plain`` bit for bit: y and the final state, bf16 and
+    float32."""
+    for dt in (torch.float32, torch.bfloat16):
+        arrays = _scan_inputs(2, 40, 24, n, seed=n + 1)
+        args = _torch(arrays[:4], dtype=dt) + _torch(arrays[4:])
+        want, wstate = selective_scan_plain(*args, return_state=True)
+        xf, dtf, bf, cf = (z.float() for z in args[:4])
+        a, d = args[4:]
+        h = torch.zeros(2, 24, n)
+        ys = []
+        for t in range(40):
+            decay = torch.exp(dtf[:, t, :, None] * a)
+            h = decay * h + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t,
+                                                                   None]
+            hc = (h * cf[:, t, None]).reshape(-1, n)
+            ys.append(_kernel_sum(hc).reshape(2, 24) + d * xf[:, t])
+        assert torch.equal(torch.stack(ys, 1).to(dt), want)
+        assert torch.equal(h, wstate)
 
 
 def test_scan_wrapper_checks_inputs():
@@ -438,6 +494,67 @@ def test_gpu_selective_scan_matches_plain(cuda, case, dtype):
     assert torch.equal(stateless, got)
     want, wstate = selective_scan_plain(*args, return_state=True)
     _card_check(got, want, gstate, wstate)
+
+
+# T around the edges of the double-buffered staging's chunks (8 steps;
+# 16 and 32 as well) and across many chunks; dim 200 (no multiple of the
+# 128 channels of a block) and 8192 (Jamba's); N 8 and 16
+GPU_EXACT_T = [0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 1000]
+GPU_EXACT_DIM_N = [(200, 8), (200, 16), (8192, 8), (8192, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim,n", GPU_EXACT_DIM_N)
+@pytest.mark.parametrize("t", GPU_EXACT_T)
+def test_gpu_selective_scan_bit_exact(cuda, t, dim, n, dtype):
+    """K8 equals its plain version bit for bit, y and the final state,
+    with and without the state."""
+    arrays = _scan_inputs(2, t, dim, n, seed=t + dim + n)
+    args = (_torch(arrays[:4], device=cuda, dtype=getattr(torch, dtype))
+            + _torch(arrays[4:], device=cuda))
+    got, gstate = selective_scan(*args, return_state=True)
+    want, wstate = selective_scan_plain(*args, return_state=True)
+    assert torch.equal(got, want) and torch.equal(gstate, wstate)
+    assert torch.equal(selective_scan(*args), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_selective_scan_bit_exact_unaligned(cuda, dtype):
+    """Inputs that do not allow the 16-byte copies (x and b start 4 bytes
+    past an aligned address; dim 130, no multiple of 8) take the kernel's
+    element-by-element staging, with the same bits."""
+    dt = getattr(torch, dtype)
+    for dim, shift in ((512, True), (130, False)):
+        x, delta, b, c, a, d = _torch(_scan_inputs(2, 77, dim, 16, seed=dim),
+                                      device=cuda, dtype=dt)
+        if shift:
+            pad = 4 // x.element_size()
+            x = torch.empty(x.numel() + pad, dtype=dt, device=cuda)[
+                pad:].view(x.shape).copy_(x)
+            b = torch.empty(b.numel() + pad, dtype=dt, device=cuda)[
+                pad:].view(b.shape).copy_(b)
+            assert x.data_ptr() % 16 and x.is_contiguous()
+        args = (x, delta, b, c, a.float(), d.float())
+        got, gstate = selective_scan(*args, return_state=True)
+        want, wstate = selective_scan_plain(*args, return_state=True)
+        assert torch.equal(got, want) and torch.equal(gstate, wstate), dim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [8, 16])
+def test_gpu_selective_scan_bit_exact_with_underflowing_exps(cuda, n, dtype):
+    """Δ up to 100: exp(Δ·a) down to subnormals and zero, with the same
+    bits."""
+    arrays = _scan_inputs(2, 1000, 200, n, seed=n, dt="wide")
+    assert (arrays[1][..., None] * arrays[4] < -104).any()
+    args = (_torch(arrays[:4], device=cuda, dtype=getattr(torch, dtype))
+            + _torch(arrays[4:], device=cuda))
+    got, gstate = selective_scan(*args, return_state=True)
+    want, wstate = selective_scan_plain(*args, return_state=True)
+    assert torch.equal(got, want) and torch.equal(gstate, wstate)
 
 
 @pytest.mark.gpu
