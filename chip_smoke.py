@@ -21,12 +21,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    edge-hash lookup over the one-process hash table of that graph's
    adjacency packed into 16-byte records (its host build and the pack
    timed as set-up), beside the entry that takes the three arrays and
-   packs them before each launch;
+   packs them before each launch; the pointer jump (one cooperative
+   launch that stops at the fixed point) also on every kind of forest
+   (identity, deep chain, random, the cycle, labels >= n) at five sizes
+   up to 2^22 and on comp shorter and longer than parent, timed on the
+   identity forest and the deep chain beside round 1's input, each with
+   its doubling steps to the fixed point, three calls queued on one
+   stream and one on a side stream, its registers, spills and stack and
+   its grid;
 3. the main path — ``minimum_spanning_forest(graph, method="boruvka")`` on
    a Graph500-style RMAT graph of scale 20 (average degree 32, fixed seed)
    with ``use_pallas=True`` under both round bodies, each forest held
    against the numpy Borůvka oracle, the kernels' launch counts read, the
-   median wall time over several runs, and one profiler window;
+   median wall time over several runs, and one profiler window, which
+   must show one pointer-jump kernel a call of its wrapper;
 4. the legacy host loop (``round_loop="host"``) on the same graph with and
    without the 32-bit scan kernel, each forest held against the oracle,
    beside the device loop's medians; and the edge-hash lookup path
@@ -307,8 +315,11 @@ def _scan_cases(torch, dev, inf, dtype=None):
                keys(m, torch.tensor([5, -7, inf - 1, -inf - 1], dtype=torch.int64)))
 
 
-def phase_kernels(torch, dev, graph, bundle, record) -> list:
-    """Phase 2: every kernel of the main path against its plain version."""
+def phase_kernels(torch, dev, graph, bundle, record, jump_ptxas: str) -> list:
+    """Phase 2: every kernel of the main path against its plain version;
+    for K3 also its times on the identity forest and a deep chain, a queue
+    of three calls on one stream and one on a side stream, its resources
+    from the compiler's report ``jump_ptxas`` and its grid."""
     from repro_torch.core import keys, union_find
     from repro_torch.core.boruvka_dist import _take
     from repro_torch.kernels.spmv_minplus import ops as spmv_ops
@@ -360,10 +371,13 @@ def phase_kernels(torch, dev, graph, bundle, record) -> list:
          (4 + 4 + 8 + 8) * M, 3 * M,
          [(c[0], (c[1], c[2], c[3])) for c in scan_cases]),
         ("pointer_jump", pointer_jump, pointer_jump_plain, (parent, comp),
-         None, 4 * n + 4 * n + 4 * n, 2 * n * jump_steps(n),
+         None, 4 * n + 4 * n + 4 * n,
+         2 * n * _fixed_point_steps(torch, parent, jump_steps(n)),
          _jump_cases(torch, dev, n)),
     ]
     rows = [_kernel_row(torch, *spec) for spec in specs]
+    rows[-1].update(_jump_extras(torch, dev, rows[-1], (parent, comp),
+                                 jump_ptxas))
     record["kernels_phase"] = rows
     return rows
 
@@ -397,17 +411,109 @@ def _kernel_row(torch, name, kernel, plain, args, library, nbytes, nops,
                 library_ms=library_ms, lanes=args[-1].numel())
 
 
-def _jump_cases(torch, dev, n):
-    """Hook forests for the pointer jump: one deep chain, and random."""
-    g = torch.Generator(device="cpu").manual_seed(SEED)
+JUMP_KINDS = ("identity", "deep chain", "random forest", "cycle",
+              "labels >= n")
+JUMP_SIZES = (1, 97, (1 << 20) + 12345, 1 << 22)   # beside the path's n
+
+
+def _jump_forest(torch, dev, kind, n, g):
+    """int32 (parent, comp) of n labels on ``dev``: the identity forest, a
+    deep chain, a random hook forest, the cycle i -> i + 1 (mod n), which
+    changes at every step, or labels >= n (up to 2**31 - 1), which break
+    the hook contract and which the clip maps to n - 1."""
     ids = torch.arange(n)
-    chain = (ids - 1).clamp(min=0)
-    rand = torch.minimum(torch.randint(0, n, (n,), generator=g), ids)
     comp = torch.randint(0, n, (n,), generator=g)
-    as_dev = lambda t: t.to(torch.int32).to(dev).contiguous()  # noqa: E731
-    return [("deep chain", (as_dev(chain), as_dev(comp))),
-            ("random forest", (as_dev(rand), as_dev(comp))),
-            ("ragged comp", (as_dev(rand), as_dev(comp[: n // 3 + 7])))]
+    if kind == "identity":
+        parent = ids
+    elif kind == "deep chain":
+        parent = (ids - 1).clamp(min=0)
+    elif kind == "random forest":
+        parent = torch.minimum(torch.randint(0, n, (n,), generator=g), ids)
+    elif kind == "cycle":
+        parent = (ids + 1) % n
+    else:
+        parent, comp = (torch.randint(0, 2 * n + 3, (n,), generator=g)
+                        for _ in range(2))
+        parent[torch.rand(n, generator=g) < 0.1] = 2 ** 31 - 1
+        comp[torch.rand(n, generator=g) < 0.1] = 2 ** 31 - 1
+    return (parent.to(torch.int32).to(dev).contiguous(),
+            comp.to(torch.int32).to(dev).contiguous())
+
+
+def _jump_cases(torch, dev, n):
+    """K3's edge cases: every kind of forest at the path's n and at
+    JUMP_SIZES, and comp shorter and longer than parent."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    cases = [(f"{kind}, n={size}", _jump_forest(torch, dev, kind, size, g))
+             for size in (n,) + JUMP_SIZES for kind in JUMP_KINDS]
+    rand, comp = _jump_forest(torch, dev, "random forest", n, g)
+    return cases + [
+        ("ragged comp", (rand, comp[: n // 3 + 7].contiguous())),
+        ("comp longer than parent", (rand, torch.cat([comp, comp.flip(0)])))]
+
+
+def _fixed_point_steps(torch, parent, cap: int) -> int:
+    """Doubling steps until one changes no label, that one included, at
+    most ``cap``: the steps K3 runs on ``parent`` (torch ops, not timed)."""
+    n, p = parent.numel(), parent
+    for k in range(1, cap + 1):
+        q = p[p.clamp(0, n - 1)]
+        if torch.equal(q, p):
+            return k
+        p = q
+    return cap
+
+
+def _jump_extras(torch, dev, row, path_args, ptxas: str) -> dict:
+    """K3 beyond the common row: its registers, spills and stack, its
+    grid, its time on the identity forest and on a deep chain beside the
+    path's, each with the steps to the fixed point; three calls queued on
+    one stream and one on a side stream, each equal to its plain result,
+    the step flags back at 0 after them."""
+    from repro_torch.kernels.spmv_minplus import spmv_minplus as sm
+    instances = _resources(ptxas, "jump_kernel", [(0, "")])
+    blocks, threads = sm.jump_grid(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = path_args[0].numel()
+    _log(f"kernel pointer_jump: one cooperative launch of at most {blocks} "
+         f"blocks ({blocks / sms:g} an SM) of {threads} threads")
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    inputs = {"round 1": path_args}
+    for kind in ("identity", "deep chain", "cycle"):
+        inputs[kind] = _jump_forest(torch, dev, kind, n, g)
+    out = dict(instances=instances, grid_blocks=blocks, threads=threads)
+    for label in ("round 1", "identity", "deep chain"):
+        args = inputs[label]
+        steps = _fixed_point_steps(torch, args[0], sm.jump_steps(n))
+        ms = row["ms"] if label == "round 1" else _time_ms(
+            torch, lambda: sm.pointer_jump(*args), 20)
+        _log(f"kernel pointer_jump [{label}]: {ms:.4f} ms, {steps} doubling "
+             f"steps to the fixed point (of {sm.jump_steps(n)})")
+        key = label.replace(" ", "_")
+        out[f"{key}_steps"] = steps
+        if label != "round 1":
+            out[f"{key}_ms"] = ms
+    queue = [inputs[k] for k in ("cycle", "identity", "round 1")]
+    torch.cuda.synchronize()
+    got = [sm.pointer_jump(*args) for args in queue]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got.append(sm.pointer_jump(*path_args))
+    torch.cuda.synchronize()
+    for label, g_out, args in zip(("queued cycle", "queued identity",
+                                   "queued round 1", "side stream"),
+                                  got, queue + [path_args]):
+        if not torch.equal(g_out, sm.pointer_jump_plain(*args)):
+            raise AssertionError(f"pointer_jump disagrees with its plain "
+                                 f"version on {label}")
+    index = path_args[0].device.index
+    for stream in (torch.cuda.current_stream(dev), side):
+        if sm._jump_flags[(index, stream.cuda_stream)].any():
+            raise AssertionError("pointer_jump left its step flags set")
+    _log("kernel pointer_jump: three calls queued on one stream and one on "
+         "a side stream bit_exact=True, step flags back at 0")
+    return out
 
 
 def phase_scan32(torch, dev, graph, record) -> dict:
@@ -656,17 +762,27 @@ def phase_profile(torch, graph, record) -> None:
     record["staging_s"] = staging
     _log(f"host staging (prepare_edges): median "
          f"{statistics.median(staging):.4f} s over 3 runs")
+    from repro_torch import kernels
     from repro_torch.core import mst_api
     params = GHSParams(round_kernel="pallas", use_pallas=True)
-    record["profile"] = _profile_window(
+    kernels.reset_launches()
+    record["profile"] = prof = _profile_window(
         torch, lambda: mst_api.minimum_spanning_forest(graph, params=params),
-        "device loop", "chip_smoke_profile.txt")
+        "device loop", "chip_smoke_profile.txt",
+        kernel_names=("jump_kernel",))
+    # One K3 kernel a call of its wrapper: the window's device kernels.
+    seen, calls = prof["counts"]["jump_kernel"], kernels.LAUNCHES["pointer_jump"]
+    _log(f"profile (device loop): {seen} K3 kernels on the device for "
+         f"{calls} pointer_jump calls")
+    if prof["device_ops"] and seen != calls:
+        raise AssertionError(f"{seen} K3 kernels ran for {calls} calls")
 
 
-def _profile_window(torch, run, label, table_name) -> dict:
+def _profile_window(torch, run, label, table_name, kernel_names=()) -> dict:
     """One profiler window over ``run()``: device busy time and idle
-    share, the device ops that took longest, and the host's time blocked
-    in synchronizing CUDA calls.  Writes the profiler's table."""
+    share, the device ops that took longest, the host's time blocked
+    in synchronizing CUDA calls, and how many device ops ran whose names
+    hold each string of ``kernel_names``.  Writes the profiler's table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -703,6 +819,8 @@ def _profile_window(torch, run, label, table_name) -> dict:
     (OUT_DIR / table_name).write_text(
         events.table(sort_by="self_cpu_time_total", row_limit=60))
     return dict(window_s=window, device_ops=n_ops,
+                counts={c: sum(e.count for e in on_device if c in e.key)
+                        for c in kernel_names},
                 device_busy_ms=busy_us / 1e3,
                 idle_share=idle, host_waits=waits,
                 top=[(e.key, dev_us(e) / 1e3, e.count) for e in top])
@@ -1915,7 +2033,8 @@ def main() -> int:
          f"tree_edges={oracle.num_tree_edges}")
 
     bundle = runtime.prepare_edges(graph, "block", chunk=8, device=dev)
-    rows = phase_kernels(torch, dev, graph, bundle, record)
+    rows = phase_kernels(torch, dev, graph, bundle, record,
+                         logs["pointer_jump"])
     del bundle
     rows.append(phase_scan32(torch, dev, graph, record))
     hash_row, hash_inputs = phase_hash(torch, dev, graph, record,

@@ -19,13 +19,15 @@ from repro_torch.kernels.segment_min.segment_min import (
     segmented_min2_scan, segmented_min2_scan_plain)
 from repro_torch.kernels.spmv_minplus import ops as spmv_ops
 from repro_torch.kernels.spmv_minplus import ref as spmv_ref
+from repro_torch.kernels.spmv_minplus import spmv_minplus
 from repro_torch.kernels.spmv_minplus.spmv_minplus import (
-    masked_minplus_scan, masked_minplus_scan_plain, pointer_jump,
+    jump_steps, masked_minplus_scan, masked_minplus_scan_plain, pointer_jump,
     pointer_jump_plain)
 
 INF = keys.INF_KEY
 BLOCK = 128          # Pallas tile for the interpret-mode runs
 SCAN_CASES = ["plain", "ragged", "one_run", "all_inf", "dup_keys", "all_equal"]
+JUMP_FORESTS = ["identity", "chain", "hook", "cycle", "beyond"]
 
 
 def _repro_modules():
@@ -176,6 +178,71 @@ def test_pointer_jump_plain_matches_pallas(ref, n):
         torch.from_numpy(parent), torch.from_numpy(comp)))
 
 
+def _jump_forest(kind: str, n: int, seed: int = 0):
+    """int32 (parent, comp), n labels each: the identity forest, a deep
+    chain, a random hook forest (parent[i] <= i), the cycle i -> i + 1
+    (mod n), which no doubling step leaves unchanged before the last, or
+    labels >= n (up to 2**31 - 1), which break the hook contract and which
+    the clip maps to n - 1."""
+    rng = np.random.default_rng(seed + n)
+    ids = np.arange(n)
+    comp = rng.integers(0, n, n)
+    if kind == "identity":
+        parent = ids
+    elif kind == "chain":
+        parent = np.maximum(ids - 1, 0)
+    elif kind == "hook":
+        parent = np.minimum(rng.integers(0, n, n), ids)
+    elif kind == "cycle":
+        parent = (ids + 1) % n
+    elif kind == "beyond":
+        parent = rng.integers(0, 2 * n + 3, n)
+        parent[rng.random(n) < 0.1] = 2 ** 31 - 1
+        comp = rng.integers(0, 2 * n + 3, n)
+        comp[rng.random(n) < 0.1] = 2 ** 31 - 1
+    else:
+        raise ValueError(kind)
+    return parent.astype(np.int32), comp.astype(np.int32)
+
+
+def _jump_schedule(parent: np.ndarray, comp: np.ndarray):
+    """A model of K3's schedule (``csrc/pointer_jump.cu``): doubling steps
+    from one buffer to the other, leaving at the first step that changes no
+    label or after ``jump_steps(n)``, then the relabel.  Returns the labels
+    and the steps run."""
+    n = parent.shape[0]
+    src = parent
+    for steps in range(1, jump_steps(n) + 1):
+        dst = src[np.clip(src, 0, n - 1)]
+        changed = bool((dst != src).any())
+        src = dst
+        if not changed:
+            break
+    return src[np.clip(comp, 0, n - 1)], steps
+
+
+@pytest.mark.parametrize("kind", JUMP_FORESTS)
+@pytest.mark.parametrize("n", [1, 2, 97, 1024])
+def test_jump_schedule_matches_pallas(ref, n, kind):
+    """The early exit is exact: the model of the kernel's schedule equals
+    the Pallas function's fixed ⌈log2 n⌉ steps, and the plain version, on
+    hook forests and on inputs that break the hook contract."""
+    import jax.numpy as jnp
+    parent, comp = _jump_forest(kind, n)
+    got, steps = _jump_schedule(parent, comp)
+    want = ref.spmv_kernel.pointer_jump(jnp.asarray(parent.astype(np.uint32)),
+                                        jnp.asarray(comp.astype(np.uint32)),
+                                        interpret=True)
+    assert np.array_equal(got, np.asarray(want).astype(np.int32))
+    assert np.array_equal(got, pointer_jump_plain(
+        torch.from_numpy(parent), torch.from_numpy(comp)).numpy())
+    assert 1 <= steps <= jump_steps(n)
+    if kind == "identity":
+        assert steps == 1
+    if kind == "cycle":
+        assert steps == jump_steps(n)
+
+
 def _election_case(rng, *, all_equal=False, dup_keys=False, ragged=False):
     """CSR-shaped election layout (a copy of the JAX package's test
     generator): endpoint fragment labels + packed reference keys, with dead
@@ -313,20 +380,57 @@ def test_gpu_scan_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 97, 1 << 20])
-def test_gpu_pointer_jump_matches_plain(cuda, n):
-    g = torch.Generator(device="cpu").manual_seed(n)
-    ids = torch.arange(n)
-    parent = torch.minimum(torch.randint(0, n, (n,), generator=g), ids)
-    parent[n // 2:] = (ids[n // 2:] - 1).clamp(min=0)   # one deep chain
-    comp = torch.randint(0, n, (n,), generator=g)
-    parent = parent.to(torch.int32).to(cuda)
-    comp = comp.to(torch.int32).to(cuda)
+@pytest.mark.parametrize("kind", JUMP_FORESTS)
+@pytest.mark.parametrize("n", [1, 97, 1 << 20, (1 << 20) + 12345, 1 << 22])
+def test_gpu_pointer_jump_matches_plain(cuda, n, kind):
+    """K3 equals its plain version bit for bit, with comp of n labels, of
+    fewer and of more; one launch a call."""
+    parent, comp = (torch.from_numpy(a).to(cuda)
+                    for a in _jump_forest(kind, n, seed=n))
+    comps = [comp, comp[: n // 3 + 1].contiguous(),
+             torch.cat([comp, comp.flip(0), comp[:1]])]
     kernels.reset_launches()
-    got = pointer_jump(parent, comp)
+    got = [pointer_jump(parent, c) for c in comps]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pointer_jump"] == len(comps)
+    for g, c in zip(got, comps):
+        assert torch.equal(g, pointer_jump_plain(parent, c))
+
+
+@pytest.mark.gpu
+def test_gpu_pointer_jump_back_to_back(cuda):
+    """Three calls queued on one stream, each on another forest (the cycle
+    runs every step, the identity one), each equal to its plain result; the
+    step flags are back at 0 after them."""
+    n = (1 << 20) + 12345
+    cases = [tuple(torch.from_numpy(a).to(cuda)
+                   for a in _jump_forest(kind, n, seed=7))
+             for kind in ("cycle", "identity", "hook")]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = [pointer_jump(p, c) for p, c in cases]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pointer_jump"] == 3
+    for g, (p, c) in zip(got, cases):
+        assert torch.equal(g, pointer_jump_plain(p, c))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not spmv_minplus._jump_flags[(got[0].device.index, stream)].any()
+
+
+@pytest.mark.gpu
+def test_gpu_pointer_jump_on_a_side_stream(cuda):
+    parent, comp = (torch.from_numpy(a).to(cuda)
+                    for a in _jump_forest("chain", 1 << 20))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    kernels.reset_launches()
+    with torch.cuda.stream(side):
+        got = pointer_jump(parent, comp)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["pointer_jump"] == 1
     assert torch.equal(got, pointer_jump_plain(parent, comp))
+    assert not spmv_minplus._jump_flags[(got.device.index,
+                                         side.cuda_stream)].any()
 
 
 @pytest.mark.gpu
