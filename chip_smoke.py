@@ -43,6 +43,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. a small RMAT scale-10 sweep over every knob the port exposes, both round
    loops, each forest held against Kruskal and against the same solve on
    the CPU;
+5b. the graph pipeline and batched solving:
+   a. ``pipeline.build`` of the counter-based RMAT scale 20 (degree 32,
+      the general preprocessing path) on the card, timed by CUDA events and
+      the host clock, byte-identical to ``build_host`` (timed once); every
+      generator kind at scales 17 (the narrow path) and 18 likewise; the
+      device edge sampler against ``sample_mask``;
+   b. ``minimum_spanning_forest`` of that ``DeviceEdges`` (built afresh
+      each run) with ``use_pallas=True`` under both round bodies: staged on
+      the card (``edge_staging == "device"``), each forest held against
+      the numpy Borůvka oracle, the kernels' launches read, medians of the
+      solve and of build plus solve beside phase 3's; one profiler window;
+   c. 256 pipeline RMAT graphs (scales 8 to 12) solved in buckets under
+      both round bodies with ``use_pallas=True``, every interval dispatch
+      under sync debug mode "error", after ``warm_bucket`` on each shape:
+      each bucket alone launches K1 once a dispatched round where it fails
+      the contraction gate (scales 11 and 12) and never where it passes,
+      every lane equal to its single solve on the card and to Kruskal, with
+      the same rounds; graphs a second of the batched solve beside the
+      single solves in a loop;
 6. the LM serving path, Qwen1.5-0.5B at its full config in bf16:
    a. the attention kernels (flash attention for prefill, decode attention
       for each decode step) against their plain versions, within the
@@ -138,6 +157,14 @@ SEED = 20
 SOLVE_RUNS = 5
 HOST_SOLVE_RUNS = 3
 MISS_SHIFT = 7919               # receiver shift of the lookup's miss queries
+PIPE_SCALE = 20                 # rmat built on the card (general path)
+PIPE_KIND_SCALES = (17, 18)     # every kind: the narrow path's last scale,
+                                # the general path's first
+PIPE_RUNS = 5
+PIPE_SAMPLE_RATE = 0.1
+CORPUS_GRAPHS = 256             # the batched corpus: rmat, degree 32,
+CORPUS_SCALES = (8, 9, 10, 11, 12)  # seed i at scale CORPUS_SCALES[i % 5]
+CORPUS_TIMED_RUNS = 3
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 LM_ARCH = "qwen1.5-0.5b"        # the served model, full config, bf16
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 512
@@ -953,6 +980,316 @@ def phase_sweep(torch, record) -> None:
     _log(f"sweep rmat-10: {n_ok}/{len(settings)} knob settings (both round "
          f"loops) equal Kruskal and the CPU solve")
     record["sweep_ok"] = n_ok
+
+
+def _same_graph(a, b) -> bool:
+    """Byte equality of two host graphs: vertices, endpoints, weight bits."""
+    import numpy as np
+    return (a.num_vertices == b.num_vertices
+            and np.array_equal(a.src, b.src) and np.array_equal(a.dst, b.dst)
+            and np.array_equal(a.weight.view(np.uint32),
+                               b.weight.view(np.uint32)))
+
+
+def phase_pipeline_build(torch, record):
+    """Phase 5b(a): the graph pipeline on the card.  rmat-PIPE_SCALE (the
+    general preprocessing path) built PIPE_RUNS times, timed by CUDA events
+    and the host clock (its one sync included), held byte for byte against
+    ``build_host`` (built once, timed); every kind at PIPE_KIND_SCALES (the
+    narrow path's last scale and the general path's first) likewise; and
+    ``sample_device_edges`` against ``sample_mask`` over the host ids.
+    Returns the spec and its host graph."""
+    from repro_torch.core import keys, pipeline
+    from repro_torch.core.graph import PAD_VERTEX
+    spec = pipeline.GraphSpec("rmat", PIPE_SCALE, avg_degree=32, seed=SEED)
+    walls, events = [], []
+    for _ in range(PIPE_RUNS):
+        dev = None
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dev = pipeline.build(spec)
+        stop.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        events.append(start.elapsed_time(stop))
+    t0 = time.perf_counter()
+    mirror = dev.to_graph()
+    fetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = pipeline.build_host(spec)
+    host_s = time.perf_counter() - t0
+    m = dev.num_edges
+    if not _same_graph(mirror, host):
+        raise AssertionError(f"rmat-{PIPE_SCALE}: device build != build_host")
+    if not (bool((dev.src[m:] == int(PAD_VERTEX)).all())
+            and bool((dev.key[m:] == keys.INF_KEY).all())):
+        raise AssertionError(f"rmat-{PIPE_SCALE}: padding slots not inert")
+    _log(f"pipeline rmat-{PIPE_SCALE}: n={spec.num_vertices} "
+         f"samples={spec.num_samples} cap={dev.capacity} m={m}; device "
+         f"build median {statistics.median(walls):.4f} s host clock "
+         f"({[round(w, 4) for w in walls]}), "
+         f"{statistics.median(events):.2f} ms CUDA events "
+         f"({[round(e, 2) for e in events]}); host build {host_s:.2f} s; "
+         f"mirror fetch (to_graph) {fetch_s:.4f} s; byte-identical")
+    kinds = {}
+    for scale in PIPE_KIND_SCALES:
+        for kind in pipeline.KINDS:
+            s = pipeline.GraphSpec(kind, scale, seed=SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = pipeline.build(s)
+            torch.cuda.synchronize()
+            t_dev = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            h = pipeline.build_host(s)
+            t_host = time.perf_counter() - t0
+            if not _same_graph(d.to_graph(), h):
+                raise AssertionError(f"{kind}-{scale}: device build != "
+                                     f"build_host")
+            kinds[f"{kind}-{scale}"] = dict(m=d.num_edges, device_s=t_dev,
+                                            host_s=t_host)
+            _log(f"pipeline {kind}-{scale}: m={d.num_edges} cap="
+                 f"{d.capacity} device {t_dev:.4f} s, host {t_host:.3f} s, "
+                 f"byte-identical")
+            del d
+    got = pipeline.sample_device_edges(dev, PIPE_SAMPLE_RATE, seed=SEED)
+    want = pipeline.sample_mask(SEED, PIPE_SAMPLE_RATE, torch.arange(m))
+    if not (torch.equal(got[:m].cpu(), want) and not bool(got[m:].any())):
+        raise AssertionError("sample_device_edges != sample_mask")
+    _log(f"sample_device_edges rate {PIPE_SAMPLE_RATE}: {int(want.sum())} of "
+         f"{m} edges, equal to sample_mask over the host ids")
+    record["pipeline_build"] = dict(
+        m=m, cap=dev.capacity, walls_s=walls, events_ms=events,
+        host_s=host_s, fetch_s=fetch_s, kinds=kinds,
+        sampled=int(want.sum()))
+    return spec, host
+
+
+def phase_pipeline_solve(torch, spec, host, record) -> dict:
+    """Phase 5b(b): ``minimum_spanning_forest`` of a freshly built
+    rmat-PIPE_SCALE ``DeviceEdges`` with ``use_pallas=True`` under both
+    round bodies, PIPE_RUNS times each: ``edge_staging == "device"``, the
+    forest equal to the numpy Borůvka oracle on the host graph, the
+    kernels' launches read; medians of the solve and of build plus solve,
+    beside phase 3's host-Graph medians; one profiler window.  Returns the
+    launch counts of each round body."""
+    from repro_torch import kernels
+    from repro_torch.core import kruskal_ref, mst_api, pipeline
+    from repro_torch.core.params import GHSParams
+    t0 = time.perf_counter()
+    oracle = kruskal_ref.boruvka_numpy(host)
+    _log(f"boruvka_numpy oracle of pipeline rmat-{PIPE_SCALE}: "
+         f"{time.perf_counter() - t0:.1f} s, "
+         f"tree_edges={oracle.num_tree_edges}")
+    out = {}
+    for rk, expect in (("pallas", ("masked_minplus_scan", "pointer_jump")),
+                       ("xla", ("segmented_min2_scan",))):
+        params = GHSParams(round_kernel=rk, use_pallas=True)
+        builds, solves, counts = [], [], None
+        for i in range(PIPE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev = pipeline.build(spec)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            kernels.reset_launches()
+            res, st = mst_api.minimum_spanning_forest(dev, params=params)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if counts is None:
+                counts = dict(kernels.LAUNCHES)
+            del dev
+            builds.append(t1 - t0)
+            solves.append(t2 - t1)
+            if st.edge_staging != "device":
+                raise AssertionError(f"DeviceEdges solve round_kernel={rk}: "
+                                     f"staging {st.edge_staging!r}")
+            if not ((res.edge_mask == oracle.edge_mask).all()
+                    and res.num_components == oracle.num_components):
+                raise AssertionError(f"DeviceEdges solve round_kernel={rk}: "
+                                     f"forest != oracle")
+            _log(f"DeviceEdges solve rmat-{PIPE_SCALE} round_kernel={rk} "
+                 f"run {i}: build {builds[-1]:.4f} s, solve "
+                 f"{solves[-1]:.4f} s, rounds={st.rounds} "
+                 f"intervals={st.intervals} host_syncs={st.host_syncs} "
+                 f"compactions={st.compactions} "
+                 f"active_history={list(st.active_history)}")
+        for name in expect:
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"DeviceEdges solve")
+        totals = [b + s for b, s in zip(builds, solves)]
+        med, med_total = statistics.median(solves), statistics.median(totals)
+        phase3 = record["solves"][rk]["median_s"]
+        _log(f"DeviceEdges solve rmat-{PIPE_SCALE} round_kernel={rk}: median "
+             f"solve {med:.4f} s, build + solve {med_total:.4f} s over "
+             f"{PIPE_RUNS} runs (phase 3, host Graph of the numpy rmat-"
+             f"{SCALE}, this call: {phase3:.4f} s); launches {counts}")
+        out[rk] = {name: counts[name] for name in expect}
+        record.setdefault("pipeline_solves", {})[rk] = dict(
+            solve_s=solves, build_s=builds, median_solve_s=med,
+            median_total_s=med_total, phase3_median_s=phase3,
+            launches=counts, rounds=st.rounds, intervals=st.intervals,
+            host_syncs=st.host_syncs)
+    params = GHSParams(round_kernel="pallas", use_pallas=True)
+    dev = pipeline.build(spec)
+    record["pipeline_profile"] = _profile_window(
+        torch, lambda: mst_api.minimum_spanning_forest(dev, params=params),
+        "DeviceEdges solve", "chip_smoke_profile_pipeline.txt",
+        kernel_names=("jump_kernel", "tile_scan"))
+    return out
+
+
+def _sync_checked_intervals(torch):
+    """Context: every batched interval dispatch runs under sync debug mode
+    "error" (an operation that waits for the card raises)."""
+    from repro_torch.core import boruvka_dist
+    real = boruvka_dist._run_interval_batch
+
+    def checked(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    @contextlib.contextmanager
+    def patched():
+        boruvka_dist._run_interval_batch = checked
+        try:
+            yield
+        finally:
+            boruvka_dist._run_interval_batch = real
+
+    return patched()
+
+
+def phase_batched(torch, record) -> dict:
+    """Phase 5b(c): a corpus of CORPUS_GRAPHS pipeline rmat graphs (degree
+    32, seed i, scales CORPUS_SCALES in turn) solved in buckets with
+    ``use_pallas=True`` under both round bodies, every interval dispatch
+    under sync debug mode "error".  ``warm_bucket`` runs on each bucket
+    shape first.  Each bucket alone (``solve_packed``): K1 launched once a
+    dispatched round where the bucket fails the contraction gate, never
+    where it passes; every lane equal to its single-graph solve on the card
+    and to Kruskal, its rounds to the single solve's.  Then graphs a second
+    of ``minimum_spanning_forests`` over the corpus (median of
+    CORPUS_TIMED_RUNS) beside the single solves in a loop.  Returns the K1
+    launches of one corpus solve."""
+    from repro_torch import kernels
+    from repro_torch.core import boruvka_dist, kruskal_ref, mst_api, pipeline
+    from repro_torch.core.params import GHSParams
+    specs = [pipeline.GraphSpec("rmat", CORPUS_SCALES[i % len(CORPUS_SCALES)],
+                                avg_degree=32, seed=i)
+             for i in range(CORPUS_GRAPHS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    devs = [pipeline.build(s) for s in specs]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mirrors = [d.to_graph() for d in devs]
+    oracles = [kruskal_ref.kruskal(g) for g in mirrors]
+    batches = pipeline.pack_batch(mirrors)
+    gates = [boruvka_dist._contract_gate(b) for b in batches]
+    _log(f"corpus: {len(devs)} pipeline rmat graphs built on the card in "
+         f"{build_s:.3f} s; buckets (n_pad, cap, B, contraction bits): "
+         f"{[(b.n_pad, b.cap, b.batch_size, g) for b, g in zip(batches, gates)]}")
+    if not any(g is None for g in gates) or all(g is None for g in gates):
+        raise AssertionError("the corpus must hold packed and fallback "
+                             "buckets")
+    out, rec = {}, {}
+    with _sync_checked_intervals(torch):
+        for rk in ("xla", "pallas"):
+            params = GHSParams(round_kernel=rk, use_pallas=True)
+            t0 = time.perf_counter()
+            warmed = sum(mst_api.warm_bucket(b.batch_size, b.n_pad, b.cap,
+                                             params=params) for b in batches)
+            warm_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            singles = [mst_api.minimum_spanning_forest(d, params=params)
+                       for d in devs]
+            torch.cuda.synchronize()
+            single_s = time.perf_counter() - t0
+            for i, (res, _) in enumerate(singles):
+                if not (res.edge_mask == oracles[i].edge_mask).all():
+                    raise AssertionError(f"corpus graph {i}: single solve "
+                                         f"!= Kruskal")
+            fallback_rounds = 0
+            for b, gate in zip(batches, gates):
+                kernels.reset_launches()
+                res, st = mst_api.solve_packed(b, params=params)
+                torch.cuda.synchronize()
+                counts = dict(kernels.LAUNCHES)
+                dispatched = st.intervals + st.speculative_intervals
+                want_k1 = dispatched if gate is None else 0
+                fallback_rounds += want_k1
+                if counts["segmented_min2_scan"] != want_k1 or any(
+                        v for k, v in counts.items()
+                        if k != "segmented_min2_scan"):
+                    raise AssertionError(
+                        f"bucket ({b.n_pad}, {b.cap}) x{b.batch_size} "
+                        f"round_kernel={rk}: launches {counts}, expected "
+                        f"{want_k1} K1 ({dispatched} dispatched rounds)")
+                if st.host_syncs != st.intervals + 1:
+                    raise AssertionError("a bucket synced inside an interval")
+                for lane, idx in enumerate(b.indices):
+                    one, one_st = singles[idx]
+                    if not ((res[lane].edge_mask == one.edge_mask).all()
+                            and st.rounds_per_graph[lane] == one_st.rounds):
+                        raise AssertionError(
+                            f"corpus graph {idx} round_kernel={rk}: lane != "
+                            f"its single solve")
+                _log(f"bucket ({b.n_pad}, {b.cap}) x{b.batch_size} "
+                     f"round_kernel={rk} "
+                     f"{'fallback' if gate is None else 'packed'}: "
+                     f"intervals={st.intervals} rounds={st.rounds} "
+                     f"compactions={st.compactions} K1 launches "
+                     f"{counts['segmented_min2_scan']} for {dispatched} "
+                     f"dispatched rounds; every lane = its single solve")
+            walls = []
+            for _ in range(CORPUS_TIMED_RUNS):
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, st = mst_api.minimum_spanning_forests(devs, params=params)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                k1 = kernels.LAUNCHES["segmented_min2_scan"]
+                if k1 != fallback_rounds:
+                    raise AssertionError(f"corpus round_kernel={rk}: {k1} K1 "
+                                         f"launches, {fallback_rounds} "
+                                         f"fallback rounds")
+                if st.host_syncs != st.intervals + st.buckets:
+                    raise AssertionError("corpus: sync ledger broken")
+                for i, (one, one_st) in enumerate(singles):
+                    if not ((res[i].edge_mask == one.edge_mask).all()
+                            and st.rounds_per_graph[i] == one_st.rounds):
+                        raise AssertionError(f"corpus graph {i}: batched != "
+                                             f"single")
+            med = statistics.median(walls)
+            _log(f"corpus round_kernel={rk}: warm_bucket {warmed} steps in "
+                 f"{warm_s:.3f} s; batched median {med:.4f} s "
+                 f"({[round(w, 4) for w in walls]}) = "
+                 f"{len(devs) / med:.1f} graphs/s, {st.buckets} buckets, "
+                 f"{st.intervals} intervals, host_syncs {st.host_syncs}; "
+                 f"{len(devs)} single solves in a loop {single_s:.3f} s = "
+                 f"{len(devs) / single_s:.1f} graphs/s; K1 launches "
+                 f"{fallback_rounds} a corpus solve")
+            out[rk] = fallback_rounds
+            rec[rk] = dict(walls_s=walls, median_s=med,
+                           graphs_per_s=len(devs) / med, single_s=single_s,
+                           single_graphs_per_s=len(devs) / single_s,
+                           warm_s=warm_s, warmed=warmed, buckets=st.buckets,
+                           intervals=st.intervals, host_syncs=st.host_syncs,
+                           k1_launches=fallback_rounds)
+    record["batched"] = dict(build_s=build_s, runs=rec, shapes=[
+        (b.n_pad, b.cap, b.batch_size, g is None)
+        for b, g in zip(batches, gates)])
+    return out
 
 
 @contextlib.contextmanager
@@ -2049,6 +2386,17 @@ def main() -> int:
     del hash_inputs
     torch.cuda.empty_cache()
     phase_sweep(torch, record)
+    t0 = time.perf_counter()
+    spec, pipe_host = phase_pipeline_build(torch, record)
+    pipe_launches = phase_pipeline_solve(torch, spec, pipe_host, record)
+    del pipe_host
+    torch.cuda.empty_cache()
+    pipe_launches["batched_k1"] = phase_batched(torch, record)
+    record["pipeline_launches"] = pipe_launches
+    record["pipeline_phase_s"] = time.perf_counter() - t0
+    _log(f"phase 5b (graph pipeline, DeviceEdges solves, batched corpus): "
+         f"{record['pipeline_phase_s']:.1f} s; launches {pipe_launches}")
+    torch.cuda.empty_cache()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -17,6 +17,14 @@ per-edge election and winner recording) and ``"pallas"``
 recording and hooking).  With ``params.use_pallas`` they run the
 hand-written CUDA kernels of :mod:`repro_torch.kernels` on a CUDA device.
 
+The engine takes a host :class:`Graph` or a
+:class:`repro_torch.core.pipeline.DeviceEdges`; the latter is staged on the
+card in place (``stats.edge_staging``).  For many graphs,
+:func:`minimum_spanning_forests` runs a whole shape bucket as ``(B, ·)``
+tensors: packed rounds with a per-interval contraction where the bucket's
+packing fits 64 bits, else :func:`_one_round` over the flattened bucket
+(one election call, so one K1 launch, a round for every lane).
+
 The legacy host-driven loop (``params.round_loop="host"``,
 :func:`_host_engine`) is the reference's before/after baseline: one round
 per dispatch, a two-phase election over single uint32 lanes (weight bits,
@@ -46,6 +54,7 @@ import torch
 
 from repro_torch.core import keys as keys_lib
 from repro_torch.core import partition as partition_lib
+from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import runtime
 from repro_torch.core import union_find
 from repro_torch.core.graph import PAD_VERTEX, Graph
@@ -76,10 +85,14 @@ def _take(labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return labels[idx.clamp(max=labels.shape[0] - 1)]
 
 
-def _one_round(comp, mask, src, dst, key, slot, *, use_pallas: bool):
+def _one_round(comp, mask, src, dst, key, slot, *, use_pallas: bool,
+               lanes: Optional[int] = None):
     """One Borůvka round: fused MOE election, winner recording, merging.
 
     ``mask`` is the per-slot tree bitmap with one extra slot at the end.
+    With ``lanes`` the state is a flattened bucket of that many graphs
+    (labels and slots offset per lane, see :func:`_run_interval_batch`):
+    the election is still one call, and ``done`` comes back per lane.
     """
     n = comp.shape[0]
     cap = mask.shape[0] - 1
@@ -93,9 +106,13 @@ def _one_round(comp, mask, src, dst, key, slot, *, use_pallas: bool):
     mask.index_fill_(0, torch.where(winners, slot.to(torch.int64), cap), True)
     parent = union_find.hook_min(n, torch.maximum(cs, cd),
                                  torch.minimum(cs, cd), winners)
-    parent = union_find.pointer_double(parent)
-    done = (best == INF_KEY).all()
-    return parent[comp], mask, done
+    if lanes is None:
+        parent = union_find.pointer_double(parent)
+        return parent[comp], mask, (best == INF_KEY).all()
+    # A lane's forest spans n // lanes labels: its doubling steps suffice.
+    parent = union_find.pointer_double(
+        parent, union_find.doubling_steps(n // lanes))
+    return parent[comp], mask, (best == INF_KEY).view(lanes, -1).all(1)
 
 
 def _one_round_fused(comp, mask, src, dst, key, csrc, cdst, *,
@@ -180,11 +197,14 @@ def _compact(comp, src, dst, key, slot, *, cap: int):
             scatter(INF_KEY, key), scatter(_PAD_SLOT, slot))
 
 
-def _device_engine(graph: Graph, params: GHSParams, device: torch.device,
+def _device_engine(source, params: GHSParams, device: torch.device,
                    max_rounds: Optional[int]) -> tuple[ForestResult, BoruvkaStats]:
-    if np.any(graph.weight.view(np.uint32) == REF_INF32):
-        raise ValueError("weights collide with the INF sentinel")
-    bundle = runtime.prepare_edges(graph, params.partitioner, chunk=8,
+    if isinstance(source, Graph):
+        # Host weights may be anything; the pipeline's lie in (0, 1) by
+        # construction, so only a host Graph needs the sentinel check.
+        if np.any(source.weight.view(np.uint32) == REF_INF32):
+            raise ValueError("weights collide with the INF sentinel")
+    bundle = runtime.prepare_edges(source, params.partitioner, chunk=8,
                                    device=device)
     n, m = bundle.num_vertices, bundle.num_edges
     layout = bundle.layout
@@ -192,13 +212,21 @@ def _device_engine(graph: Graph, params: GHSParams, device: torch.device,
 
     fused = runtime.resolve_round_kernel(params.round_kernel) == "pallas"
     if fused:
-        zero = np.zeros(1, np.int32)
-        csrc = torch.from_numpy(graph.src if m else zero).to(device)
-        cdst = torch.from_numpy(graph.dst if m else zero).to(device)
+        if not m:
+            csrc = cdst = torch.zeros(1, dtype=torch.int32, device=device)
+        elif bundle.staging == "device":
+            # The DeviceEdges buffers' live prefixes ARE the canonical
+            # endpoints: no upload from the host mirror.
+            csrc, cdst = bundle.src[:m], bundle.dst[:m]
+        else:
+            g_host = bundle.graph()
+            csrc = torch.from_numpy(g_host.src).to(device)
+            cdst = torch.from_numpy(g_host.dst).to(device)
         mask = torch.zeros(m + 1, dtype=torch.bool, device=device)
         sort_bits = spmv_ops.sort_gate(n, m)
         if sort_bits is not None and np.any(
-                graph.weight.view(np.uint32) >= spmv_ops.WEIGHT_LIMIT_BITS):
+                bundle.graph().weight.view(np.uint32)
+                >= spmv_ops.WEIGHT_LIMIT_BITS):
             sort_bits = None   # weights outside (0, 1): no sort key
         lowering = ("pallas" if params.use_pallas
                     else "sort" if sort_bits is not None else "scatter")
@@ -220,6 +248,7 @@ def _device_engine(graph: Graph, params: GHSParams, device: torch.device,
     interval = max(params.check_frequency, 1)
     cap_rounds = max_rounds or (n + 2)
     stats = BoruvkaStats()
+    stats.edge_staging = bundle.staging
     history = []
     box = dict(cur_block=layout.block, dispatched=0, inflight=[])
 
@@ -268,10 +297,515 @@ def _device_engine(graph: Graph, params: GHSParams, device: torch.device,
     else:
         tree = layout.canonical_mask(mask_full, m)
     ncomp = int(np.unique(comp_final).size)
-    res = runtime.forest_from_mask(graph, tree, num_components=ncomp)
+    res = runtime.forest_from_mask(bundle.graph(), tree, num_components=ncomp)
     res.check_consistent(n)
     stats.active_history = tuple(history)
     return res, stats
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-graph engine: a whole shape bucket as (B, ·) tensors
+# ---------------------------------------------------------------------------
+# The reference maps a lane function under ``jax.vmap``; here every tensor of
+# a bucket carries the lane as its leading dim: gathers and scatters run
+# along dim 1, sorts along the last dim, and no Python loop runs over lanes.
+# The winner bitmap is one flat ``(B·cap + 1,)`` buffer: lane r's slot s is
+# entry ``r·cap + s`` and the last entry is the dropped-write slot.
+
+@dataclasses.dataclass
+class BatchStats(BoruvkaStats):
+    """Stats of a batched solve: ``rounds_per_graph`` (runtime protocol) in
+    input order, ``bucket_shapes`` one ``(n_pad, cap, batch_size)`` per
+    dispatched bucket.  :meth:`merge` sums a sub-solve's ledger (one bucket,
+    or one single-graph run of the host-loop fallback)."""
+
+    buckets: int = 0
+    bucket_shapes: tuple = ()
+
+    def merge(self, st: BoruvkaStats) -> None:
+        self.host_syncs += st.host_syncs
+        self.intervals += st.intervals
+        self.extra_syncs += st.extra_syncs
+        self.rounds += st.rounds
+        self.compactions += st.compactions
+        self.edges_scanned += st.edges_scanned
+        self.active_history += st.active_history
+        self.overlapped_syncs += st.overlapped_syncs
+        self.speculative_intervals += st.speculative_intervals
+
+
+def _lane_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Endpoints as int64 gather indices clamped to the lane's last label,
+    as the reference's gathers clamp (a padding edge is a self-loop)."""
+    return idx.clamp(max=n - 1).to(torch.int64)
+
+
+def _lane_labels(comp: torch.Tensor, si: torch.Tensor) -> torch.Tensor:
+    return torch.gather(comp, 1, si).to(torch.int64)
+
+
+def _one_round_packed(comp, mask, si, di, key, live, *, s_bits: int,
+                      c_bits: int, election: str):
+    """One Borůvka round of a packed bucket (every lane in the identity
+    layout, slot == canonical id).
+
+    The election value packs (weight-bits ‖ edge-id ‖ other fragment), so
+    each fragment's elected value names its winning slot and its merge
+    partner: recording and hooking run at fragment scale.  ``"scatter"``
+    elects by a scatter-min; ``"sort"`` prepends the electing fragment
+    (``2·s_bits + 30 + c_bits ≤ 64``, the contraction gate), sorts each
+    lane and probes each fragment's run with ``searchsorted``.  Both stay
+    in the flipped domain, since the sort word can fill 64 bits.  Lanes
+    not ``live`` record nothing.  Returns ``(comp, mask, done per lane)``.
+    """
+    lsr, flip = keys_lib.lsr, keys_lib.SIGN
+    bsz, n = comp.shape
+    cap = (mask.shape[0] - 1) // bsz
+    cs = _lane_labels(comp, si)
+    cd = _lane_labels(comp, di)
+    alive = (cs != cd) & (key != INF_KEY)
+    u = keys_lib.unflip(key)
+    base = ((lsr(u, 32) << (c_bits + s_bits))
+            | ((u & keys_lib.LANE_MASK) << s_bits))
+    frag = torch.arange(n, dtype=torch.int64, device=comp.device)
+    if election == "sort":
+        shift = 30 + c_bits + s_bits
+
+        def side(seg, oth):
+            return torch.where(alive, ((seg << shift) | base | oth) ^ flip,
+                               INF_KEY)
+
+        sk = torch.sort(torch.cat([side(cs, cd), side(cd, cs)], 1),
+                        dim=-1).values
+        m2 = sk.shape[1]
+        probe = ((frag << shift) ^ flip).expand(bsz, n).contiguous()
+        pos = torch.searchsorted(sk, probe)
+        cand = torch.gather(sk, 1, pos.clamp(max=m2 - 1))
+        cu = keys_lib.unflip(cand)
+        found = (pos < m2) & (lsr(cu, shift) == frag) & (cand != INF_KEY)
+        best = torch.where(found, (cu & ((1 << shift) - 1)) ^ flip, INF_KEY)
+    else:
+        val = torch.cat([torch.where(alive, (base | cd) ^ flip, INF_KEY),
+                         torch.where(alive, (base | cs) ^ flip, INF_KEY)], 1)
+        best = torch.full((bsz, n), INF_KEY, dtype=torch.int64,
+                          device=comp.device)
+        best.scatter_reduce_(1, torch.cat([cs, cd], 1), val, "amin")
+    elected = best != INF_KEY
+    bu = keys_lib.unflip(best)               # garbage where not elected
+    best_eid = lsr(bu, s_bits) & ((1 << c_bits) - 1)
+    other = bu & ((1 << s_bits) - 1)
+    lane = torch.arange(bsz, dtype=torch.int64, device=comp.device)[:, None]
+    mask.index_fill_(0, torch.where(elected & live[:, None],
+                                    best_eid + lane * cap,
+                                    bsz * cap).view(-1), True)
+    parent = union_find.hook_min(n, torch.maximum(frag, other),
+                                 torch.minimum(frag, other), elected)
+    parent = union_find.pointer_double(parent)
+    return (torch.gather(parent, 1, comp.to(torch.int64)), mask,
+            ~elected.any(1))
+
+
+def _contract_lanes(comp, si, di, key, *, s_bits: int, c_bits: int):
+    """Borůvka contraction of every lane, sort-based and scatter-free.
+
+    Endpoints become fragment labels and parallel cross-fragment edges
+    collapse to the min-key edge of each fragment pair; a dropped edge can
+    never be any fragment's minimum outgoing edge, so no later election
+    changes.  The (lo, hi, weight-bits, edge-id) quadruple packs into one
+    64-bit word (flipped), so it is two key-only sorts: pair grouping, then
+    survivors to the front.  Returns the new edge arrays and each lane's
+    surviving count.
+    """
+    lsr, flip = keys_lib.lsr, keys_lib.SIGN
+    bsz = comp.shape[0]
+    cu = _lane_labels(comp, si)
+    cd = _lane_labels(comp, di)
+    alive = (cu != cd) & (key != INF_KEY)
+    u = keys_lib.unflip(key)
+    packed = ((torch.minimum(cu, cd) << (c_bits + 30 + s_bits))
+              | (torch.maximum(cu, cd) << (c_bits + 30))
+              | (lsr(u, 32) << c_bits) | (u & keys_lib.LANE_MASK))
+    pk = torch.sort(torch.where(alive, packed ^ flip, INF_KEY), dim=-1).values
+    pair = lsr(keys_lib.unflip(pk), c_bits + 30)
+    head = torch.ones((bsz, 1), dtype=torch.bool, device=comp.device)
+    first = (pk != INF_KEY) & torch.cat([head, pair[:, 1:] != pair[:, :-1]], 1)
+    kept = torch.sort(torch.where(first, pk, INF_KEY), dim=-1).values
+    dead = kept == INF_KEY
+    ku = keys_lib.unflip(kept)
+    eid = ku & ((1 << c_bits) - 1)
+    wb = lsr(ku, c_bits) & ((1 << 30) - 1)
+    hi = lsr(ku, c_bits + 30) & ((1 << s_bits) - 1)
+    lo = lsr(ku, c_bits + 30 + s_bits)
+    pad = int(PAD_VERTEX)
+    return (torch.where(dead, pad, lo).to(torch.int32),
+            torch.where(dead, pad, hi).to(torch.int32),
+            torch.where(dead, INF_KEY, ((wb << 32) | eid) ^ flip),
+            torch.where(dead, _PAD_SLOT, eid).to(torch.int32),
+            first.sum(1))
+
+
+def _run_interval_batch(comp, mask, src, dst, key, slot, done, rdone,
+                        rounds: int, *, use_pallas: bool,
+                        contract_bits, election: str = "scatter"):
+    """Queue ``rounds`` Borůvka rounds for a whole bucket.
+
+    State: ``comp`` (B, n_pad) int32 lane-local labels, the flat bitmap
+    ``mask``, the (B, cur_cap) edge arrays, ``done`` (B,) and ``rdone`` (B,)
+    each lane's rounds so far.  A lane that is done is frozen (its labels
+    and bitmap stay), so each lane follows the single-graph trajectory.
+    Every round is queued; ``r`` counts those started while some lane was
+    live, as the reference's loop stops at the first round with all done.
+
+    ``contract_bits = (s_bits, c_bits)``: packed rounds
+    (:func:`_one_round_packed`), then a per-lane :func:`_contract_lanes`
+    in place; the census is the largest surviving count.  ``None`` (the
+    packing does not fit 64 bits): :func:`_one_round` over the flattened
+    bucket, labels offset by ``lane · n_pad`` and slots by ``lane · cap``,
+    so each round is ONE election call (one kernel launch with
+    ``use_pallas``) over all lanes; the census is the largest active count.
+
+    Returns the new state and a :class:`runtime.Readback` of
+    ``(all done, r, census)`` — nothing in here waits for the host.
+    """
+    bsz, n = comp.shape
+    dev = comp.device
+    si = _lane_index(src, n)
+    di = _lane_index(dst, n)
+    if contract_bits is not None:
+        s_bits, c_bits = contract_bits
+
+        def step(comp, mask, live):
+            return _one_round_packed(comp, mask, si, di, key, live,
+                                     s_bits=s_bits, c_bits=c_bits,
+                                     election=election)
+    else:
+        cap = (mask.shape[0] - 1) // bsz
+        lane = torch.arange(bsz, dtype=torch.int64, device=dev)[:, None]
+        off = (lane * n).to(torch.int32)
+        src_g = (si + lane * n).to(torch.int32).view(-1)
+        dst_g = (di + lane * n).to(torch.int32).view(-1)
+        slot_g = (slot.to(torch.int64) + lane * cap).view(-1)
+        key_g = key.reshape(-1)
+
+        def step(comp, mask, live):
+            comp_g, mask, lane_done = _one_round(
+                (comp + off).view(-1), mask, src_g, dst_g, key_g, slot_g,
+                use_pallas=use_pallas, lanes=bsz)
+            return comp_g.view(bsz, n) - off, mask, lane_done
+
+    r = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(rounds):
+        live = ~done
+        r = r + live.any()
+        comp2, mask, done2 = step(comp, mask, live)
+        comp = torch.where(live[:, None], comp2, comp)
+        rdone = rdone + live
+        done = done | done2
+
+    if contract_bits is not None:
+        src, dst, key, slot, counts = _contract_lanes(
+            comp, si, di, key, s_bits=s_bits, c_bits=c_bits)
+        census = counts.max()
+    else:
+        active = ((_lane_labels(comp, si) != _lane_labels(comp, di))
+                  & (key != INF_KEY))
+        census = active.sum(1).max()
+    readback = runtime.Readback(torch.stack([done.all().to(torch.int64), r,
+                                             census]))
+    return (comp, mask, src, dst, key, slot, done, rdone), readback
+
+
+def _compact_lanes(comp, src, dst, key, slot, *, cap: int):
+    """Per-lane prefix-sum stream compaction to ``cap`` slots (the
+    fallback's shrink): survivors slide to the front with their load-time
+    ``slot``; the tail refills with the padding sentinels."""
+    bsz, n = comp.shape
+    si = _lane_index(src, n)
+    di = _lane_index(dst, n)
+    keep = ((_lane_labels(comp, si) != _lane_labels(comp, di))
+            & (key != INF_KEY))
+    idx = torch.where(keep, torch.cumsum(keep, 1) - 1, cap)
+
+    def put(fill, vals):
+        out = torch.full((bsz, cap + 1), fill, dtype=vals.dtype,
+                         device=vals.device)
+        out.scatter_(1, idx, vals)
+        return out[:, :cap].contiguous()
+
+    return (put(int(PAD_VERTEX), src), put(int(PAD_VERTEX), dst),
+            put(INF_KEY, key), put(_PAD_SLOT, slot))
+
+
+def _shrink_lanes(edges, cap: int):
+    """Cut every lane's front-packed (contracted) edge arrays to ``cap``."""
+    return tuple(t[:, :cap].contiguous() for t in edges)
+
+
+def _gate_bits(n_pad: int, cap: int):
+    """(s_bits, c_bits) of an ``(n_pad, cap)`` bucket when its contraction
+    quadruple fits one 64-bit word (``2·s_bits + 30 + c_bits ≤ 64``), else
+    None."""
+    s_bits = max(n_pad - 1, 1).bit_length()
+    c_bits = max(cap - 1, 1).bit_length()
+    if 2 * s_bits + 30 + c_bits > 64:
+        return None
+    return (s_bits, c_bits)
+
+
+def _lattice_contract_bits(params: GHSParams):
+    """Uniform (s_bits, c_bits) of a bounded serving lattice: with
+    ``batch_max_vertices``/``batch_max_edges`` set, every bucket's packed
+    rounds may use the lattice top's wider shifts (labels < n_pad ≤ n_top,
+    slots < cap ≤ cap_top, the 64-bit gate checked at the top)."""
+    if (params.compaction != "pow2" or not params.batch_max_vertices
+            or not params.batch_max_edges):
+        return None
+    n_top = pow2ceil(int(params.batch_max_vertices))
+    cap_top = pow2ceil(max(int(params.batch_max_edges), 8))
+    return _gate_bits(n_top, cap_top)
+
+
+def _widen_contract_bits(contract_bits, params: GHSParams):
+    """A bucket's own contraction bits, promoted to the lattice top's when
+    the params define a lattice that covers them."""
+    if contract_bits is None:
+        return None
+    lat = _lattice_contract_bits(params)
+    if (lat is not None and lat[0] >= contract_bits[0]
+            and lat[1] >= contract_bits[1]):
+        return lat
+    return contract_bits
+
+
+def _weight_lanes(key: np.ndarray) -> np.ndarray:
+    """Weight-bits lane (uint64) of the port's flipped int64 keys."""
+    return keys_lib.to_reference(key) >> np.uint64(32)
+
+
+def _contract_gate(batch):
+    """(s_bits, c_bits) when the bucket's contraction quadruple fits one
+    64-bit word — labels ``log2(n_pad)`` bits each, weight bits 30 (every
+    real weight below 2.0, checked on the keys), the canonical id
+    ``log2(cap)`` — else None (the unpacked fallback)."""
+    bits = _gate_bits(batch.n_pad, batch.cap)
+    if bits is None:
+        return None
+    real = batch.key != INF_KEY
+    if np.any(real & (_weight_lanes(batch.key) >= np.uint64(1 << 30))):
+        return None
+    return bits
+
+
+def _bucket_plan(params: GHSParams, contract_bits, key=None):
+    """Widened contraction bits and the election of a bucket: ``"sort"``
+    under ``round_kernel="pallas"`` when the bucket passes the gate and
+    every real weight lies below 1.0 (``key`` None: assumed, as for
+    pipeline weights), else ``"scatter"``."""
+    contract_bits = _widen_contract_bits(contract_bits, params)
+    election = "scatter"
+    if (runtime.resolve_round_kernel(params.round_kernel) == "pallas"
+            and contract_bits is not None):
+        if key is None or not np.any(
+                (key != INF_KEY) & (_weight_lanes(key)
+                                    >= np.uint64(spmv_ops.WEIGHT_LIMIT_BITS))):
+            election = "sort"
+    return contract_bits, election
+
+
+def _solve_bucket(batch, params: GHSParams, max_rounds: Optional[int],
+                  device: torch.device):
+    """Run one shape bucket through the batched device round loop."""
+    n_pad, cap, bsz = batch.n_pad, batch.cap, batch.batch_size
+    contract_bits = (_contract_gate(batch)
+                     if params.compaction == "pow2" else None)
+    contract_bits, election = _bucket_plan(params, contract_bits, batch.key)
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    comp = torch.arange(n_pad, dtype=torch.int32, device=device).repeat(bsz, 1)
+    mask = torch.zeros(bsz * cap + 1, dtype=torch.bool, device=device)
+    done = torch.zeros(bsz, dtype=torch.bool, device=device)
+    rdone = torch.zeros(bsz, dtype=torch.int64, device=device)
+    state = (comp, mask, put(batch.src), put(batch.dst), put(batch.key),
+             put(batch.slot), done, rdone)
+
+    overlap = (runtime.resolve_interval_pipeline(
+        params.interval_pipeline) == 1)
+    interval = max(params.batch_check_frequency, 1)
+    cap_rounds = max_rounds or (n_pad + 2)
+    stats = BatchStats(buckets=1, bucket_shapes=((n_pad, cap, bsz),))
+    history = []
+    box = dict(cur_cap=cap, dispatched=0, inflight=[])
+
+    def dispatch(s):
+        this_rounds = max(min(interval, cap_rounds - box["dispatched"]), 0)
+        s, readback = _run_interval_batch(
+            *s, this_rounds, use_pallas=params.use_pallas,
+            contract_bits=contract_bits, election=election)
+        box["dispatched"] += this_rounds
+        box["inflight"].append(box["cur_cap"])
+        return s, readback
+
+    def finish(s, vals):
+        all_done, r, census = vals
+        stats.rounds += r
+        stats.edges_scanned += r * box["inflight"].pop(0) * bsz
+        history.append(census)
+        if all_done:
+            return s, True
+        if params.compaction == "pow2":
+            new_cap = max(pow2ceil(census), 8)
+            if new_cap < box["cur_cap"]:
+                comp, mask, *edges, done, rdone = s
+                if contract_bits is not None:
+                    # Contraction packed the survivors to the front.
+                    edges = _shrink_lanes(edges, new_cap)
+                else:
+                    edges = _compact_lanes(comp, *edges, cap=new_cap)
+                s = (comp, mask, *edges, done, rdone)
+                box["cur_cap"] = new_cap
+                stats.compactions += 1
+        return s, False
+
+    state = runtime.interval_loop(
+        state, dispatch, finish, stats=stats, max_intervals=cap_rounds,
+        fail_msg="batched Borůvka engine failed to converge",
+        overlap=overlap)
+
+    # The bucket's one final fetch: the rounds and the bitmap, one buffer.
+    mask, rdone = state[1], state[7]
+    raw = torch.cat([rdone.view(torch.uint8),
+                     mask[:-1].view(torch.uint8)]).cpu().numpy()
+    stats.host_syncs += 1
+    stats.extra_syncs += 1
+    results = batch.unpack(raw[8 * bsz:].view(bool).reshape(bsz, cap))
+    stats.active_history = tuple(history)
+    stats.rounds_per_graph = tuple(int(x) for x in raw[:8 * bsz].view(np.int64))
+    return results, stats
+
+
+def warm_bucket(batch_size: int, n_pad: int, cap: int,
+                params: GHSParams = DEFAULT_PARAMS, device=None) -> int:
+    """Run every interval and shrink a ``(batch_size, n_pad, cap)`` bucket
+    can reach, on all-ghost lanes, so each kernel it launches is built and
+    each buffer size allocated before the first real solve.
+
+    The ladder is the reference's: the interval at the load cap and at
+    every power-of-two compaction cap below it (none when one dispatch
+    runs ``n_pad + 2`` rounds, so every lane converges before a shrink),
+    and the shrinks between them.  The contraction gate and the election
+    are taken as for (0, 1) weights.  Returns the reference's count: one
+    per interval and shrink.
+    """
+    dev = runtime.resolve_device(device)
+    bsz = int(batch_size)
+    contract_bits = (_gate_bits(n_pad, cap)
+                     if params.compaction == "pow2" else None)
+    contract_bits, election = _bucket_plan(params, contract_bits)
+    caps = [cap]
+    if params.batch_check_frequency < n_pad + 2:
+        c = 8
+        while c * 2 < cap:
+            c *= 2
+        while 8 <= c < cap:
+            caps.append(c)
+            c //= 2
+    count = 0
+    pad = int(PAD_VERTEX)
+    for cur in caps:
+        state, readback = _run_interval_batch(
+            torch.arange(n_pad, dtype=torch.int32, device=dev).repeat(bsz, 1),
+            torch.zeros(bsz * cap + 1, dtype=torch.bool, device=dev),
+            torch.full((bsz, cur), pad, dtype=torch.int32, device=dev),
+            torch.full((bsz, cur), pad, dtype=torch.int32, device=dev),
+            torch.full((bsz, cur), INF_KEY, dtype=torch.int64, device=dev),
+            torch.from_numpy(partition_lib.batched_slots(bsz, cur)).to(dev),
+            torch.zeros(bsz, dtype=torch.bool, device=dev),
+            torch.zeros(bsz, dtype=torch.int64, device=dev),
+            1, use_pallas=params.use_pallas, contract_bits=contract_bits,
+            election=election)
+        readback.get()
+        count += 1
+        for new in caps:
+            if new < cur:
+                _shrink_lanes(state[2:6], new)
+                count += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return count
+
+
+def solve_packed(batch, params: GHSParams = DEFAULT_PARAMS,
+                 max_rounds: Optional[int] = None, device=None):
+    """Solve ONE pre-packed shape bucket (:func:`pipeline.pack_bucket`).
+
+    Results come back in lane order; each forest is bit-identical to the
+    single-graph solve.  Device loop only.
+    """
+    dev = runtime.resolve_device(device)
+    if runtime.resolve_round_loop(params.round_loop) != "device":
+        raise ValueError(
+            "solve_packed requires round_loop='device'; the host loop "
+            "solves graphs one at a time via minimum_spanning_forest")
+    for r, g in enumerate(batch.graphs):
+        if np.any(g.weight.view(np.uint32) == REF_INF32):
+            raise ValueError(
+                f"lane {r}: weights collide with the INF sentinel")
+    return _solve_bucket(batch, params, max_rounds, dev)
+
+
+def minimum_spanning_forests(graphs, params: GHSParams = DEFAULT_PARAMS,
+                             max_rounds: Optional[int] = None, device=None):
+    """Solve many graphs, a shape bucket per dispatch.
+
+    Graphs (``Graph`` or ``DeviceEdges``, the latter through their host
+    mirror) are bucketed by padded shape (:func:`pipeline.pack_batch` under
+    ``params.batch_bucket``, capacity-guarded) and each bucket runs the
+    batched round loop: one dispatch and one scalar readback per interval
+    for the whole bucket, one final fetch per bucket.  Results come back in
+    input order, each forest and round count equal to the single-graph
+    solve's.  ``params.round_loop == "host"`` falls back to a loop of
+    single host-loop solves.
+    """
+    dev = runtime.resolve_device(device)
+    graph_list = [runtime.as_graph(g) for g in graphs]
+    for i, g in enumerate(graph_list):
+        if np.any(g.weight.view(np.uint32) == REF_INF32):
+            raise ValueError(
+                f"graph {i}: weights collide with the INF sentinel")
+    # Bucket and validate first: the policy and the capacity guards reject
+    # bad inputs on both loop drivers.
+    batches = pipeline_lib.pack_batch(
+        graph_list, bucket=params.batch_bucket,
+        max_vertices=params.batch_max_vertices or None,
+        max_edges=params.batch_max_edges or None)
+
+    stats = BatchStats()
+    if runtime.resolve_round_loop(params.round_loop) == "host":
+        results, rounds = [], []
+        for g in graph_list:
+            res, st = _host_engine(g, params, dev, max_rounds)
+            results.append(res)
+            rounds.append(st.rounds)
+            stats.merge(st)
+        stats.rounds_per_graph = tuple(rounds)
+        return results, stats
+
+    results: list = [None] * len(graph_list)
+    rounds = [0] * len(graph_list)
+    shapes = []
+    for batch in batches:
+        bres, bst = _solve_bucket(batch, params, max_rounds, dev)
+        for idx, res, r in zip(batch.indices, bres, bst.rounds_per_graph):
+            results[idx] = res
+            rounds[idx] = r
+        stats.merge(bst)
+        shapes.extend(bst.bucket_shapes)
+    stats.buckets = len(batches)
+    stats.bucket_shapes = tuple(shapes)
+    stats.rounds_per_graph = tuple(rounds)
+    return results, stats
 
 
 # ---------------------------------------------------------------------------
@@ -479,4 +1013,4 @@ def minimum_spanning_forest(
             "item 13: multi-GPU)")
     if runtime.resolve_round_loop(params.round_loop) == "host":
         return _host_engine(runtime.as_graph(graph), params, dev, max_rounds)
-    return _device_engine(runtime.as_graph(graph), params, dev, max_rounds)
+    return _device_engine(graph, params, dev, max_rounds)

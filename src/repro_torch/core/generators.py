@@ -1,8 +1,12 @@
-"""Graph generators of the paper's evaluation (§4): RMAT, SSCA2, Uniform.
+"""Graph generators of the paper's evaluation (§4): RMAT, SSCA2, Uniform,
+and the graph pipeline's scenario kinds.
 
 ``SCALE`` = log2(num_vertices), average vertex degree 32 (16·N undirected
-edge samples), weights uniform in the open interval (0, 1).  Each generator
-draws raw samples from a numpy seed and returns the §3.1-preprocessed graph.
+edge samples), weights uniform in the open interval (0, 1).  The paper's
+generators draw raw samples from a numpy seed; geo_knn, grid, chain and star
+are the counter-based pipeline samplers on the host
+(:func:`repro_torch.core.pipeline.build_host`).  Each returns the
+§3.1-preprocessed graph.
 """
 from __future__ import annotations
 
@@ -131,20 +135,29 @@ def disconnected(
     return preprocess(src, dst, _weights(rng, src.shape[0]), n)
 
 
+def _pipeline_kind(kind: str):
+    """Host-oracle wrapper of a counter-based pipeline generator
+    (:func:`repro_torch.core.pipeline.build_host`)."""
+    def gen(scale: int, avg_degree: int = 32, *, seed: int = 0) -> Graph:
+        from repro_torch.core import pipeline
+        return pipeline.build_host(
+            pipeline.GraphSpec(kind, scale, avg_degree=avg_degree, seed=seed))
+    gen.__name__ = kind
+    return gen
+
+
 GENERATORS = {
     "rmat": rmat,
     "ssca2": ssca2,
     "random": uniform_random,
     "disconnected": disconnected,
+    # Scenario kinds of the graph pipeline (its host-oracle path).
+    "geo_knn": _pipeline_kind("geo_knn"),
+    "grid": _pipeline_kind("grid"),
+    "chain": _pipeline_kind("chain"),
+    "star": _pipeline_kind("star"),
 }
 
 
 def generate(kind: str, scale: int, **kw) -> Graph:
-    try:
-        gen = GENERATORS[kind]
-    except KeyError:
-        raise NotImplementedError(
-            f"generator kind {kind!r} is not ported; the pipeline kinds "
-            f"(geo_knn, grid, chain, star) arrive with the device graph "
-            f"pipeline (ROADMAP queue 1, item 7)") from None
-    return gen(scale, **kw)
+    return GENERATORS[kind](scale, **kw)

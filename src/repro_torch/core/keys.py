@@ -41,10 +41,17 @@ LANE_MASK = 0xFFFFFFFF
 SIGN32 = -(1 << 31)                # int32 with only the top bit set
 INF32 = (1 << 31) - 1              # flipped 0xFFFFFFFF: identity of min
 
-# splitmix64 constants (the hashed partitioner's finalizer).
+# splitmix64 constants (the hashed partitioner's finalizer and the graph
+# pipeline's counter-based generator).
 SPLITMIX_GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _SPLITMIX_M1 = np.uint64(0xBF58476D1CE4E5B9)
 _SPLITMIX_M2 = np.uint64(0x94D049BB133111EB)
+
+
+def signed64(u: int) -> int:
+    """The int64 whose bits are the unsigned 64-bit word ``u`` (unflipped)."""
+    u &= (1 << 64) - 1
+    return u - (1 << 64) if u >> 63 else u
 
 
 def splitmix64(x: np.ndarray) -> np.ndarray:
@@ -147,3 +154,37 @@ def combine_key_lanes(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     hi = hi.to(torch.int64) & LANE_MASK
     lo = lo.to(torch.int64) & LANE_MASK
     return ((hi << 32) | lo) ^ SIGN
+
+
+# --- raw unsigned 64-bit words in int64 ------------------------------------
+# The graph pipeline's counters and random words are plain unsigned words
+# carried as the int64 with the same bits (NOT sign-flipped like keys):
+# int64 addition and multiplication wrap exactly as uint64 does, shifts go
+# through :func:`lsr`, and unsigned order and remainder need the helpers
+# below.
+
+_GAMMA_S = signed64(int(SPLITMIX_GAMMA))
+_M1_S = signed64(int(_SPLITMIX_M1))
+_M2_S = signed64(int(_SPLITMIX_M2))
+
+
+def splitmix64_torch(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer over raw 64-bit words in an int64 tensor; the
+    same bits as :func:`splitmix64` on the uint64 array."""
+    z = x + _GAMMA_S
+    z = (z ^ lsr(z, 30)) * _M1_S
+    z = (z ^ lsr(z, 27)) * _M2_S
+    return z ^ lsr(z, 31)
+
+
+def umod(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Unsigned remainder of raw 64-bit words by a small ``1 <= d < 2**62``."""
+    return ((lsr(x, 1) % d) * 2 + (x & 1)) % d
+
+
+def ult(a: torch.Tensor, b) -> torch.Tensor:
+    """Unsigned ``a < b`` of raw 64-bit words; ``b`` a tensor of them or a
+    Python int in ``[0, 2**64)``."""
+    if isinstance(b, int):
+        b = signed64(b)
+    return (a ^ SIGN) < (b ^ SIGN)

@@ -1,7 +1,8 @@
 """Public MST API of the port — a thin façade over the engines.
 
 Only ``method="boruvka"`` is ported; the other methods of the JAX package
-raise ``NotImplementedError`` naming the ROADMAP item that will port them.
+raise ``NotImplementedError`` naming the ROADMAP item that will port them,
+as do the incremental entries.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ _NOT_PORTED = {
     "ghs": "ROADMAP queue 1, item 12: the paper-faithful GHS engine",
     "filter_boruvka": "ROADMAP queue 1, item 9: core/filter_boruvka.py",
 }
+_INCREMENTAL = "ROADMAP queue 1, item 10: core/incremental.py"
 
 
 def minimum_spanning_forest(
@@ -24,13 +26,17 @@ def minimum_spanning_forest(
     device=None,
     **kw,
 ) -> tuple[ForestResult, runtime.EngineStats]:
-    """Compute the minimum spanning forest of a :class:`Graph`.
+    """Compute the minimum spanning forest of ``graph``.
 
-    ``device=None`` runs on the CUDA card and raises when there is none;
-    pass ``device="cpu"`` for the plain PyTorch path.  Returns
-    ``(ForestResult, stats)``; the forest is bit-identical to the JAX
-    package's for every knob, because both elect edges under the same
-    packed (weight, edge-id) total order.
+    ``graph`` is a host :class:`Graph` or a
+    :class:`repro_torch.core.pipeline.DeviceEdges` from
+    :func:`pipeline.build`, which the engine takes with no edge round trip
+    through the host (``stats.edge_staging == "device"`` under the default
+    ``block`` partitioner).  ``device=None`` runs on the CUDA card and
+    raises when there is none; pass ``device="cpu"`` for the plain PyTorch
+    path.  Returns ``(ForestResult, stats)``; the forest is bit-identical
+    to the JAX package's for every knob, because both elect edges under the
+    same packed (weight, edge-id) total order.
     """
     if method in _NOT_PORTED:
         raise NotImplementedError(
@@ -39,3 +45,68 @@ def minimum_spanning_forest(
         raise ValueError(f"unknown method {method!r}; options: {METHODS}")
     return boruvka_dist.minimum_spanning_forest(
         graph, params=params, device=device, **kw)
+
+
+def minimum_spanning_forests(
+    graphs,
+    method: str = "boruvka",
+    params: GHSParams = DEFAULT_PARAMS,
+    max_rounds=None,
+    device=None,
+) -> tuple[list, runtime.EngineStats]:
+    """Compute minimum spanning forests of MANY graphs at once.
+
+    Graphs are bucketed by padded shape (``params.batch_bucket``,
+    capacity-guarded by ``params.batch_max_vertices`` / ``batch_max_edges``)
+    and each bucket runs the Borůvka round loop as ``(B, ·)`` tensors: one
+    dispatch and one scalar readback per interval for the whole bucket.
+    Returns ``(forests, stats)`` in input order; each forest equals the
+    single-graph solve's, and ``stats.rounds_per_graph`` its rounds.  Only
+    ``method="boruvka"`` has a batched path.  ``params.round_loop ==
+    "host"`` falls back to a loop of single solves.
+    """
+    if method != "boruvka":
+        raise ValueError(
+            f"batched solving supports method='boruvka' only, got "
+            f"{method!r}; solve GHS queries one graph at a time via "
+            f"minimum_spanning_forest")
+    return boruvka_dist.minimum_spanning_forests(
+        graphs, params=params, max_rounds=max_rounds, device=device)
+
+
+def solve_packed(
+    batch,
+    params: GHSParams = DEFAULT_PARAMS,
+    max_rounds=None,
+    device=None,
+) -> tuple[list, runtime.EngineStats]:
+    """Solve one pre-packed :class:`repro_torch.core.pipeline.GraphBatch`
+    (routed with :func:`pipeline.bucket_shape`, packed with
+    :func:`pipeline.pack_bucket`); results in lane order."""
+    return boruvka_dist.solve_packed(
+        batch, params=params, max_rounds=max_rounds, device=device)
+
+
+def warm_bucket(
+    batch_size: int,
+    n_pad: int,
+    cap: int,
+    params: GHSParams = DEFAULT_PARAMS,
+    device=None,
+) -> int:
+    """Build and allocate everything a bucket shape can touch in a solve
+    (see :func:`repro_torch.core.boruvka_dist.warm_bucket`)."""
+    return boruvka_dist.warm_bucket(batch_size, n_pad, cap, params=params,
+                                    device=device)
+
+
+def incremental_forest(graph, *args, **kw):
+    """Not ported yet: the evolving-graph handle of the JAX package."""
+    raise NotImplementedError(
+        f"incremental_forest is not ported yet ({_INCREMENTAL})")
+
+
+def apply_updates(forest, edge_batch, *args, **kw):
+    """Not ported yet: batched insert/delete updates of a solved forest."""
+    raise NotImplementedError(
+        f"apply_updates is not ported yet ({_INCREMENTAL})")

@@ -146,3 +146,20 @@ def build_edge_layout(
         sel = np.flatnonzero(shard == s)       # ascending: canonical order
         eid[s * block: s * block + sel.size] = sel
     return EdgeLayout(num_shards=num_shards, block=block, eid=eid)
+
+
+def identity_layout(num_edges: int, cap: int) -> EdgeLayout:
+    """One-shard layout whose slot *i* is canonical edge *i*, padding slots
+    from ``num_edges`` to ``cap``: the layout of every lane of a packed
+    graph batch."""
+    eid = np.full(cap, -1, dtype=np.int64)
+    eid[:num_edges] = np.arange(num_edges, dtype=np.int64)
+    return EdgeLayout(num_shards=1, block=cap, eid=eid)
+
+
+def batched_slots(batch_size: int, cap: int) -> np.ndarray:
+    """(B, cap) int32 slot side-lane of a packed graph batch: each lane
+    carries its own slot index, so tree-edge recording survives per-lane
+    compaction."""
+    return np.broadcast_to(
+        np.arange(cap, dtype=np.int32), (batch_size, cap)).copy()

@@ -10,11 +10,14 @@ This module owns the engine-independent pieces: :func:`interval_loop` (the
 host driver, sequential or double-buffered), :class:`Readback` (the one
 device→host copy per interval), :class:`EngineStats`,
 :func:`forest_from_mask`, the knob validators, and :func:`prepare_edges`
-(the partition layer that stages a host :class:`Graph` on the device).
+(the partition layer: a host :class:`Graph` is laid out on the host and
+uploaded, a :class:`repro_torch.core.pipeline.DeviceEdges` is handed to the
+engine in place).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -38,15 +41,23 @@ class EngineStats:
     :func:`interval_loop` adds one ``host_syncs`` and one ``intervals`` per
     consumed interval readback; the engine adds one ``host_syncs`` and one
     ``extra_syncs`` for its final state fetch, so a single-graph device
-    loop keeps ``host_syncs == intervals + 1``.  ``overlapped_syncs``
-    counts readbacks consumed while a successor interval was already
-    queued; ``speculative_intervals`` counts trailing dispatches whose
-    scalars were never read because termination had been observed.
+    loop keeps ``host_syncs == intervals + 1``; the batched driver adds one
+    final fetch per bucket, so ``host_syncs == intervals + buckets``.
+    ``overlapped_syncs`` counts readbacks consumed while a successor
+    interval was already queued; ``speculative_intervals`` counts trailing
+    dispatches whose scalars were never read because termination had been
+    observed.  ``edge_staging`` names the :func:`prepare_edges` path that
+    staged the input (``"device"``: a DeviceEdges handed over in place;
+    ``"host"``: laid out on the host and uploaded; empty for drivers that
+    do not stage through it).  ``rounds_per_graph`` is filled by the
+    batched driver: one round count per input graph, in input order.
     """
 
     host_syncs: int = 0
     intervals: int = 0
     extra_syncs: int = 0
+    edge_staging: str = ""
+    rounds_per_graph: tuple = ()
     overlapped_syncs: int = 0
     speculative_intervals: int = 0
 
@@ -190,15 +201,22 @@ def resolve_device(device) -> torch.device:
 # Partition layer
 # ---------------------------------------------------------------------------
 
+def _device_edges_type():
+    from repro_torch.core.pipeline import DeviceEdges
+    return DeviceEdges
+
+
 def as_graph(source) -> Graph:
-    """Host :class:`Graph` view of an engine input."""
+    """Host :class:`Graph` view of an engine input (a Graph, or the cached
+    host mirror of a DeviceEdges)."""
     if isinstance(source, Graph):
         return source
+    if isinstance(source, _device_edges_type()):
+        return source.to_graph()
     raise NotImplementedError(
         f"engine input {type(source).__name__} is not supported: the port "
-        f"takes a repro_torch Graph (see Graph.from_arrays); device-resident "
-        f"edges arrive with the device graph pipeline (ROADMAP queue 1, "
-        f"item 7)")
+        f"takes a repro_torch Graph (see Graph.from_arrays) or a "
+        f"repro_torch DeviceEdges (see pipeline.build)")
 
 
 @dataclasses.dataclass
@@ -208,7 +226,8 @@ class EdgeBundle:
     ``src``/``dst`` (int32, ``PAD_VERTEX`` in padding slots) and ``key``
     (flipped int64, ``INF_KEY`` in padding slots) hold ``layout.num_slots``
     slots; ``slot`` carries each slot's own index so tree-edge recording
-    survives compaction.
+    survives compaction.  ``source`` keeps the caller's input for the host
+    mirror the forest is built from; ``staging`` names the path taken.
     """
 
     layout: partition_lib.EdgeLayout
@@ -218,14 +237,47 @@ class EdgeBundle:
     slot: torch.Tensor
     num_vertices: int
     num_edges: int
+    source: Any = None
+    staging: str = "host"
+
+    def graph(self) -> Graph:
+        return as_graph(self.source)
 
 
-def prepare_edges(graph: Graph, partitioner_name: str, *, chunk: int,
+def prepare_edges(source, partitioner_name: str, *, chunk: int,
                   device: torch.device) -> EdgeBundle:
-    """Stage a host :class:`Graph` on ``device`` under the chosen
-    partitioner: the :class:`EdgeLayout` is built on the host, the arrays
-    are gathered into slot order and uploaded once."""
+    """Stage an engine input on ``device`` under the chosen partitioner.
+
+    * A host :class:`Graph`: the :class:`EdgeLayout` is built on the host,
+      the arrays are gathered into slot order and uploaded once.
+    * A :class:`~repro_torch.core.pipeline.DeviceEdges` under ``block``:
+      its canonical buffers are the block layout, handed over as they
+      stand (moved with ``.to(device)`` if they live on another device);
+      no edge crosses to the host.  Any other partitioner's layout is a
+      host decision, so it mirrors the edges through the host under a
+      ``UserWarning`` that names the reason.
+
+    The path taken is ``EdgeBundle.staging`` (``"device"`` or ``"host"``).
+    """
     part = partition_lib.get_partitioner(partitioner_name)
+    if isinstance(source, _device_edges_type()):
+        if part.name == "block":
+            cap = source.capacity
+            eid = np.arange(cap, dtype=np.int64)
+            eid[source.num_edges:] = -1
+            layout = partition_lib.EdgeLayout(num_shards=1, block=cap,
+                                              eid=eid)
+            return EdgeBundle(
+                layout=layout, src=source.src.to(device),
+                dst=source.dst.to(device), key=source.key.to(device),
+                slot=torch.arange(cap, dtype=torch.int32, device=device),
+                num_vertices=source.num_vertices,
+                num_edges=source.num_edges, source=source, staging="device")
+        warnings.warn(
+            f"DeviceEdges cannot take the no-host-round-trip fast path "
+            f"(partitioner {part.name!r} is a host-side layout decision); "
+            f"falling back to a full host mirror", stacklevel=2)
+    graph = as_graph(source)
     layout = partition_lib.build_edge_layout(graph, part, 1, chunk)
     valid = layout.eid >= 0
     gather = layout.eid[valid]
@@ -244,4 +296,4 @@ def prepare_edges(graph: Graph, partitioner_name: str, *, chunk: int,
     return EdgeBundle(layout=layout, src=put(src_p), dst=put(dst_p),
                       key=put(key_p), slot=put(slot_np),
                       num_vertices=graph.num_vertices,
-                      num_edges=graph.num_edges)
+                      num_edges=graph.num_edges, source=source)

@@ -212,7 +212,7 @@ def test_knob_validation_and_unported_paths():
             mst_api.minimum_spanning_forest(
                 g, params=GHSParams(round_loop=loop), device="cpu",
                 mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Graph.*or.*DeviceEdges"):
         mst_api.minimum_spanning_forest((g.src, g.dst), device="cpu")
 
 
@@ -240,6 +240,16 @@ def test_port_imports_neither_jax_nor_repro():
         "    res, _ = mst_api.minimum_spanning_forest(\n"
         "        g, params=GHSParams(use_pallas=True, **kw), device='cpu')\n"
         "    assert (res.edge_mask == kruskal_ref.kruskal(g).edge_mask).all()\n"
+        "from repro_torch.core import pipeline\n"
+        "spec = pipeline.GraphSpec('geo_knn', 6, seed=1)\n"
+        "dev = pipeline.build(spec, device='cpu')\n"
+        "res, st = mst_api.minimum_spanning_forest(dev, device='cpu')\n"
+        "assert st.edge_staging == 'device'\n"
+        "assert (res.edge_mask == kruskal_ref.kruskal(\n"
+        "    pipeline.build_host(spec)).edge_mask).all()\n"
+        "many, bst = mst_api.minimum_spanning_forests([g, dev], device='cpu')\n"
+        "assert (many[0].edge_mask == kruskal_ref.kruskal(g).edge_mask).all()\n"
+        "assert bst.host_syncs == bst.intervals + bst.buckets\n"
         "pos = np.arange(g.num_edges, dtype=np.int32)\n"
         "t = c.build_table(g.src, g.dst, pos, 4 * g.num_edges + 1)\n"
         "got = c.lookup(t, g.src, g.dst, device='cpu')\n"
@@ -277,6 +287,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     import ast
     pkg = Path(repro_torch.__file__).resolve().parent
     files = sorted(pkg.rglob("*.py")) + [pkg.parents[1] / "chip_smoke.py"]
+    for module in ("core/pipeline.py", "core/boruvka_dist.py",
+                   "core/mst_api.py"):
+        assert pkg / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
