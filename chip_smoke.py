@@ -62,6 +62,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       every lane equal to its single solve on the card and to Kruskal, with
       the same rounds; graphs a second of the batched solve beside the
       single solves in a loop;
+5c. Filter-Borůvka and incremental updates, on phase 3's graph:
+   a. ``minimum_spanning_forest(graph, method="filter_boruvka")`` with
+      ``use_pallas=True`` under both round bodies at the default sample
+      rate and levels, each forest equal to the oracle and to phase 3's
+      Borůvka forest bit for bit; the survivors, the passes, K3's launches
+      (and those of the label loop) and the label loop's host reads; the
+      median wall time beside phase 3's; K3 against its plain version on
+      the label chain's first hook forest, timed beside its bound; the
+      level chain alone at 1, 2, 4 and 8 iterations between two reads;
+   b. ``incremental_forest`` of the graph, then three chained
+      ``apply_updates`` batches of 8,192 inserts and 8,192 deletes (half
+      tree edges, one pair deleted and re-inserted lighter) with
+      ``use_pallas=True``, ``round_kernel="pallas"``: each updated graph
+      equal to ``apply_edge_batch``'s and each forest to a fresh solve on
+      the card; the ledger, the candidates as a share of m, K3's launches
+      and the label loop's reads, the update's wall time beside the fresh
+      solve's;
 6. the LM serving path, Qwen1.5-0.5B at its full config in bf16:
    a. the attention kernels (flash attention for prefill, decode attention
       for each decode step) against their plain versions, within the
@@ -165,6 +182,10 @@ PIPE_SAMPLE_RATE = 0.1
 CORPUS_GRAPHS = 256             # the batched corpus: rmat, degree 32,
 CORPUS_SCALES = (8, 9, 10, 11, 12)  # seed i at scale CORPUS_SCALES[i % 5]
 CORPUS_TIMED_RUNS = 3
+FILTER_RUNS = 3                 # filter_boruvka solves a round body
+LABEL_CHECK_SWEEP = (1, 2, 4, 8)  # label-loop iterations between flag reads
+UPDATE_BATCHES = 3              # chained apply_updates batches
+UPDATE_SIZE = 8192              # inserts, and deletes, a batch
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 LM_ARCH = "qwen1.5-0.5b"        # the served model, full config, bf16
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 512
@@ -728,12 +749,13 @@ def phase_hash(torch, dev, graph, record, ptxas: str):
                      u=torch.from_numpy(u).to(dev), hits=lv.size)
 
 
-def phase_solves(torch, graph, oracle, record) -> dict:
-    """Phase 3: the main path under both kernel round bodies."""
+def phase_solves(torch, graph, oracle, record) -> tuple[dict, dict]:
+    """Phase 3: the main path under both kernel round bodies.  Returns the
+    launch counts and each body's forest."""
     from repro_torch import kernels
     from repro_torch.core import mst_api
     from repro_torch.core.params import GHSParams
-    launches = {}
+    launches, forests = {}, {}
     for rk, expect in (("pallas", ("masked_minplus_scan", "pointer_jump")),
                        ("xla", ("segmented_min2_scan",))):
         params = GHSParams(round_kernel=rk, use_pallas=True)
@@ -761,6 +783,7 @@ def phase_solves(torch, graph, oracle, record) -> dict:
             if counts[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the path")
         launches.update({name: counts[name] for name in expect})
+        forests[rk] = res
         med = statistics.median(walls)
         _log(f"solve rmat-{SCALE} round_kernel={rk}: median wall {med:.4f} s "
              f"over {SOLVE_RUNS} runs, {graph.num_edges / med:.4e} edges/s, "
@@ -770,7 +793,7 @@ def phase_solves(torch, graph, oracle, record) -> dict:
             intervals=st.intervals, host_syncs=st.host_syncs,
             compactions=st.compactions,
             active_history=list(st.active_history))
-    return launches
+    return launches, forests
 
 
 def phase_profile(torch, graph, record) -> None:
@@ -1289,6 +1312,303 @@ def phase_batched(torch, record) -> dict:
     record["batched"] = dict(build_s=build_s, runs=rec, shapes=[
         (b.n_pad, b.cap, b.batch_size, g is None)
         for b, g in zip(batches, gates)])
+    return out
+
+
+def _same_forest(a, b) -> bool:
+    """Bit equality of two forests: the edge mask and the three scalars."""
+    return (bool((a.edge_mask == b.edge_mask).all())
+            and (a.total_weight, a.num_components, a.num_tree_edges)
+            == (b.total_weight, b.num_components, b.num_tree_edges))
+
+
+@contextlib.contextmanager
+def _label_loop_spy(spy: dict):
+    """Inside the block, count the K3 launches of the label loop
+    (``spmv_minplus.ops.connected_labels``, which ``component_maxkey``
+    runs too) in ``spy["k3"]`` and its calls in ``spy["calls"]``; keep the
+    first K3 input of the loop in ``spy["k3_input"]`` and the first
+    arguments of the filter's level chain in ``spy["chain"]``."""
+    from repro_torch import kernels
+    from repro_torch.core import filter_boruvka
+    from repro_torch.kernels.spmv_minplus import ops
+    labels, jump, chain = (ops.connected_labels, ops.pointer_jump,
+                           filter_boruvka._level_labels)
+    inside = []
+
+    def counted(*args, **kw):
+        before = kernels.LAUNCHES["pointer_jump"]
+        inside.append(True)
+        try:
+            return labels(*args, **kw)
+        finally:
+            inside.pop()
+            spy["k3"] += kernels.LAUNCHES["pointer_jump"] - before
+            spy["calls"] += 1
+
+    def first_input(parent, comp):
+        if inside and "k3_input" not in spy:
+            spy["k3_input"] = (parent.clone(), comp.clone())
+        return jump(parent, comp)
+
+    def first_chain(*args):
+        spy.setdefault("chain", args)
+        return chain(*args)
+
+    ops.connected_labels, ops.pointer_jump = counted, first_input
+    filter_boruvka._level_labels = first_chain
+    try:
+        yield spy
+    finally:
+        ops.connected_labels, ops.pointer_jump = labels, jump
+        filter_boruvka._level_labels = chain
+
+
+def phase_filter(torch, graph, oracle, forests, record) -> dict:
+    """Phase 5c(a): ``method="filter_boruvka"`` on phase 3's rmat-SCALE
+    graph with ``use_pallas=True`` under both round bodies, FILTER_RUNS
+    times each: every forest equal to the numpy oracle and to phase 3's
+    Borůvka forest bit for bit; the survivors, the passes, K3's launches
+    (all of them, and the label loop's) and the label loop's host reads;
+    the median wall time beside phase 3's.  Then K3 against its plain
+    version on the first input the label loop gave it, timed beside its
+    bound, and the level chain alone at each of LABEL_CHECK_SWEEP
+    iterations between two flag reads.  Returns the K3 launches."""
+    from repro_torch import kernels
+    from repro_torch.core import filter_boruvka, mst_api, runtime
+    from repro_torch.core.params import GHSParams
+    from repro_torch.kernels.spmv_minplus import ops
+    from repro_torch.kernels.spmv_minplus.spmv_minplus import (
+        jump_steps, pointer_jump, pointer_jump_plain)
+    out, rec = {}, {}
+    spy = None
+    for rk in ("pallas", "xla"):
+        params = GHSParams(round_kernel=rk, use_pallas=True)
+        walls = []
+        for i in range(FILTER_RUNS):
+            kernels.reset_launches()
+            with _label_loop_spy(dict(k3=0, calls=0)) as run_spy:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, st = mst_api.minimum_spanning_forest(
+                    graph, method="filter_boruvka", params=params)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            if i == 0:
+                counts, loop = dict(kernels.LAUNCHES), run_spy
+            if not (_same_forest(res, oracle) and _same_forest(res,
+                                                              forests[rk])):
+                raise AssertionError(f"filter round_kernel={rk}: forest != "
+                                     f"oracle / phase 3's Borůvka forest")
+            _log(f"filter rmat-{SCALE} round_kernel={rk} run {i}: wall "
+                 f"{walls[-1]:.4f} s, survivors {list(st.survivor_history)}, "
+                 f"edges_filtered={st.edges_filtered} "
+                 f"filter_passes={st.filter_passes} rounds={st.rounds} "
+                 f"host_syncs={st.host_syncs} label_syncs={st.label_syncs}")
+        if loop["k3"] <= 0:
+            raise AssertionError(f"filter round_kernel={rk}: the label loop "
+                                 f"launched no K3")
+        if rk == "xla":
+            spy = loop
+        med = statistics.median(walls)
+        phase3 = record["solves"][rk]["median_s"]
+        _log(f"filter rmat-{SCALE} round_kernel={rk}: median wall {med:.4f} "
+             f"s over {FILTER_RUNS} runs (phase 3 Borůvka, this call: "
+             f"{phase3:.4f} s); K3 launches {counts['pointer_jump']}, of "
+             f"them {loop['k3']} in {loop['calls']} label-loop calls; "
+             f"launches {counts}")
+        out[rk] = counts["pointer_jump"]
+        rec[rk] = dict(walls_s=walls, median_s=med, phase3_median_s=phase3,
+                       launches=counts, label_k3=loop["k3"],
+                       label_calls=loop["calls"],
+                       survivor_history=list(st.survivor_history),
+                       edges_filtered=st.edges_filtered,
+                       filter_passes=st.filter_passes, rounds=st.rounds,
+                       host_syncs=st.host_syncs, extra_syncs=st.extra_syncs,
+                       label_syncs=st.label_syncs)
+
+    # One profiler window over a fused-body filter run: K3 kernels on the
+    # device, one a wrapper call.
+    params = GHSParams(round_kernel="pallas", use_pallas=True)
+    kernels.reset_launches()
+    rec["profile"] = prof = _profile_window(
+        torch, lambda: mst_api.minimum_spanning_forest(
+            graph, method="filter_boruvka", params=params),
+        "filter", "chip_smoke_profile_filter.txt",
+        kernel_names=("jump_kernel",))
+    seen, calls = prof["counts"]["jump_kernel"], kernels.LAUNCHES["pointer_jump"]
+    _log(f"profile (filter): {seen} K3 kernels on the device for {calls} "
+         f"pointer_jump calls")
+    if prof["device_ops"] and seen != calls:
+        raise AssertionError(f"{seen} K3 kernels ran for {calls} calls")
+
+    # K3 on the label loop's own input: the first hook forest of the
+    # first level that iterates (round_kernel="xla": the loop's only K3).
+    parent, comp = spy["k3_input"]
+    n = parent.numel()
+    got, want = pointer_jump(parent, comp), pointer_jump_plain(parent, comp)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, got, want)
+    if err:
+        raise AssertionError(f"pointer_jump disagrees with its plain version "
+                             f"on the label chain's input (max abs err {err})")
+    steps = _fixed_point_steps(torch, parent, jump_steps(n))
+    ms = _time_ms(torch, lambda: pointer_jump(parent, comp), 20)
+    plain_ms = _time_ms(torch, lambda: pointer_jump_plain(parent, comp), 3,
+                        warmup=1)
+    bound_ms, bound_by = _bound_ms(12 * n, 2 * n * steps)
+    _log(f"kernel pointer_jump [label chain, {n} lanes] bit_exact=True: "
+         f"{ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, plain "
+         f"{plain_ms:.4f} ms), {steps} doubling steps to the fixed point")
+    rec["k3_label_chain"] = dict(lanes=n, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 steps=steps, max_abs_err=err)
+
+    # The level chain alone at several iterations between two flag reads.
+    chain_args = spy["chain"]
+    sweep, base = {}, None
+    default = ops.LABEL_CHECK_EVERY
+    try:
+        for every in LABEL_CHECK_SWEEP:
+            ops.LABEL_CHECK_EVERY = every
+            walls = []
+            for _ in range(3):
+                stats = runtime.EngineStats()
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                labels = filter_boruvka._level_labels(*chain_args[:6], stats)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            if base is None:
+                base = labels
+            elif not torch.equal(labels, base):
+                raise AssertionError(f"level labels differ at LABEL_CHECK_EVERY="
+                                     f"{every}")
+            sweep[every] = dict(median_s=statistics.median(walls),
+                                reads=stats.host_syncs,
+                                k3=kernels.LAUNCHES["pointer_jump"])
+            _log(f"level chain ({tuple(base.shape)} labels) LABEL_CHECK_EVERY="
+                 f"{every}: median {sweep[every]['median_s'] * 1e3:.3f} ms, "
+                 f"{stats.host_syncs} reads, {sweep[every]['k3']} K3 launches")
+    finally:
+        ops.LABEL_CHECK_EVERY = default
+    rec["check_every_sweep"] = sweep
+    record["filter"] = rec
+    return out
+
+
+def _update_batch(np, rng, state):
+    """UPDATE_SIZE inserts and UPDATE_SIZE deletes: random pairs with
+    float32 weights in (0, 1); half the deletes tree edges of the current
+    forest, half non-tree edges; one deleted tree edge re-inserted at half
+    its weight (so lighter)."""
+    from repro_torch.core.incremental import EdgeBatch
+    g, half = state.graph, UPDATE_SIZE // 2
+    tree = rng.choice(np.flatnonzero(state.forest.edge_mask), half,
+                      replace=False)
+    other = rng.choice(np.flatnonzero(~state.forest.edge_mask), half,
+                       replace=False)
+    dels = np.concatenate([tree, other])
+    n, k = g.num_vertices, UPDATE_SIZE - 1
+    again = tree[0]
+    return EdgeBatch(
+        insert_src=np.append(rng.integers(0, n, k), g.src[again]).astype(
+            np.int32),
+        insert_dst=np.append(rng.integers(0, n, k), g.dst[again]).astype(
+            np.int32),
+        insert_weight=np.append(
+            rng.integers(1, 1 << 24, k) / float(1 << 24),
+            g.weight[again] / 2).astype(np.float32),
+        delete_src=g.src[dels], delete_dst=g.dst[dels])
+
+
+def phase_updates(torch, graph, record) -> dict:
+    """Phase 5c(b): ``incremental_forest`` of phase 3's graph, then
+    UPDATE_BATCHES chained ``apply_updates`` batches (``_update_batch``)
+    with ``use_pallas=True``, ``round_kernel="pallas"``.  After each, the
+    updated graph equals ``apply_edge_batch`` of the previous one and the
+    forest a fresh Borůvka solve of it on the card, bit for bit; logged:
+    the ledger, the candidates as a share of m, K3's launches (and the
+    label loop's), the label loop's reads, and the wall times of the
+    update, of the merge alone and of the fresh solve.  Returns the label
+    loop's K3 launches of each batch."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import incremental, mst_api
+    from repro_torch.core.params import GHSParams
+    params = GHSParams(round_kernel="pallas", use_pallas=True)
+    t0 = time.perf_counter()
+    state, _ = mst_api.incremental_forest(graph, params=params)
+    _log(f"incremental_forest rmat-{SCALE}: {time.perf_counter() - t0:.4f} s")
+    rng = np.random.default_rng(SEED)
+    rows, out = [], []
+    for b in range(UPDATE_BATCHES):
+        batch = _update_batch(np, rng, state)
+        m_before = state.graph.num_edges
+        kernels.reset_launches()
+        with _label_loop_spy(dict(k3=0, calls=0)) as spy:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, st = mst_api.apply_updates(state, batch, params=params)
+            torch.cuda.synchronize()
+            upd_s = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        g2 = incremental.apply_edge_batch(state.graph, batch)
+        merge_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh, _ = mst_api.minimum_spanning_forest(g2, params=params)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        if not _same_graph(new.graph, g2):
+            raise AssertionError(f"update batch {b}: graph != apply_edge_batch")
+        if not _same_forest(new.forest, fresh):
+            raise AssertionError(f"update batch {b}: forest != fresh solve")
+        if spy["k3"] <= 0:
+            raise AssertionError(f"update batch {b}: the label loop launched "
+                                 f"no K3")
+        row = dict(m_before=m_before, m_after=g2.num_edges,
+                   updates_applied=st.updates_applied,
+                   replacement_probes=st.replacement_probes,
+                   candidate_count=st.candidate_count,
+                   candidate_share=st.candidate_count / g2.num_edges,
+                   edges_filtered=st.edges_filtered, rounds=st.rounds,
+                   host_syncs=st.host_syncs, label_syncs=st.label_syncs,
+                   k3=counts["pointer_jump"], label_k3=spy["k3"],
+                   launches=counts, update_s=upd_s, merge_s=merge_s,
+                   fresh_s=fresh_s,
+                   components=new.forest.num_components)
+        _log(f"update batch {b} (rmat-{SCALE}, {batch.num_inserts} inserts, "
+             f"{batch.num_deletes} deletes): apply_updates {upd_s:.4f} s "
+             f"(apply_edge_batch alone {merge_s:.4f} s), fresh solve "
+             f"{fresh_s:.4f} s; updates_applied={st.updates_applied} "
+             f"replacement_probes={st.replacement_probes} "
+             f"candidates={st.candidate_count} "
+             f"({row['candidate_share']:.4%} of m={g2.num_edges}) "
+             f"host_syncs={st.host_syncs} label_syncs={st.label_syncs} K3 "
+             f"launches {counts['pointer_jump']} ({spy['k3']} in the label "
+             f"loop); forest = fresh solve")
+        rows.append(row)
+        out.append(spy["k3"])
+        prev, state = state, new
+    # One profiler window over the last batch again, from the same state.
+    kernels.reset_launches()
+    again = []
+    prof = _profile_window(
+        torch, lambda: again.append(mst_api.apply_updates(
+            prev, batch, params=params)[0]),
+        "update batch", "chip_smoke_profile_update.txt",
+        kernel_names=("jump_kernel",))
+    if not _same_forest(again[0].forest, state.forest):
+        raise AssertionError("update batch again: forest differs")
+    seen, calls = prof["counts"]["jump_kernel"], kernels.LAUNCHES["pointer_jump"]
+    _log(f"profile (update batch): {seen} K3 kernels on the device for "
+         f"{calls} pointer_jump calls")
+    if prof["device_ops"] and seen != calls:
+        raise AssertionError(f"{seen} K3 kernels ran for {calls} calls")
+    record["updates"] = dict(batches=rows, profile=prof)
     return out
 
 
@@ -2378,7 +2698,7 @@ def main() -> int:
                                        logs["edge_hash"])
     rows.append(hash_row)
     torch.cuda.empty_cache()
-    launches = phase_solves(torch, graph, oracle, record)
+    launches, forests = phase_solves(torch, graph, oracle, record)
     phase_profile(torch, graph, record)
     launches["segmented_min_scan"] = phase_host_solves(torch, graph, oracle,
                                                        record)
@@ -2396,6 +2716,16 @@ def main() -> int:
     record["pipeline_phase_s"] = time.perf_counter() - t0
     _log(f"phase 5b (graph pipeline, DeviceEdges solves, batched corpus): "
          f"{record['pipeline_phase_s']:.1f} s; launches {pipe_launches}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record["filter_update_launches"] = dict(
+        filter=phase_filter(torch, graph, oracle, forests, record),
+        updates_label_k3=phase_updates(torch, graph, record))
+    del forests
+    record["filter_update_phase_s"] = time.perf_counter() - t0
+    _log(f"phase 5c (filter-Borůvka, incremental updates): "
+         f"{record['filter_update_phase_s']:.1f} s; K3 launches "
+         f"{record['filter_update_launches']}")
     torch.cuda.empty_cache()
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1003,14 +1003,7 @@ def minimum_spanning_forest(
     the legacy host loop; both run on one device.
     """
     dev = runtime.resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh runs are not ported yet (ROADMAP queue 1, item 13: "
-            "multi-GPU)")
-    if runtime.resolve_collective(params.collective) == "compressed":
-        raise NotImplementedError(
-            "collective='compressed' is not ported yet (ROADMAP queue 1, "
-            "item 13: multi-GPU)")
+    runtime.require_one_device(mesh, params.collective)
     if runtime.resolve_round_loop(params.round_loop) == "host":
         return _host_engine(runtime.as_graph(graph), params, dev, max_rounds)
     return _device_engine(graph, params, dev, max_rounds)

@@ -1,22 +1,26 @@
 """Public MST API of the port — a thin façade over the engines.
 
-Only ``method="boruvka"`` is ported; the other methods of the JAX package
-raise ``NotImplementedError`` naming the ROADMAP item that will port them,
-as do the incremental entries.
+``method="boruvka"`` (the synchronous engine) and ``"filter_boruvka"``
+(the sampling hybrid, :mod:`.filter_boruvka`) are ported, as are batched
+solving and the incremental entries (:mod:`.incremental`).
+``method="ghs"`` raises ``NotImplementedError`` naming the ROADMAP item
+that will port it.
 """
 from __future__ import annotations
 
-from repro_torch.core import boruvka_dist, runtime
+from repro_torch.core import boruvka_dist, filter_boruvka, incremental, runtime
 from repro_torch.core.kruskal_ref import ForestResult
 from repro_torch.core.params import DEFAULT_PARAMS, GHSParams
 
 METHODS = ("ghs", "boruvka", "filter_boruvka")
 
+_ENGINES = {
+    "boruvka": boruvka_dist.minimum_spanning_forest,
+    "filter_boruvka": filter_boruvka.minimum_spanning_forest,
+}
 _NOT_PORTED = {
     "ghs": "ROADMAP queue 1, item 12: the paper-faithful GHS engine",
-    "filter_boruvka": "ROADMAP queue 1, item 9: core/filter_boruvka.py",
 }
-_INCREMENTAL = "ROADMAP queue 1, item 10: core/incremental.py"
 
 
 def minimum_spanning_forest(
@@ -34,17 +38,20 @@ def minimum_spanning_forest(
     through the host (``stats.edge_staging == "device"`` under the default
     ``block`` partitioner).  ``device=None`` runs on the CUDA card and
     raises when there is none; pass ``device="cpu"`` for the plain PyTorch
-    path.  Returns ``(ForestResult, stats)``; the forest is bit-identical
-    to the JAX package's for every knob, because both elect edges under the
-    same packed (weight, edge-id) total order.
+    path.  ``method="filter_boruvka"`` samples, solves the sample, drops
+    the edges the cycle rule proves non-MSF and solves the survivors
+    (``params.filter_sample_rate`` / ``filter_levels`` /
+    ``filter_threshold``).  Returns ``(ForestResult, stats)``; the forest
+    is bit-identical to the JAX package's for every method and knob,
+    because every engine elects edges under the same packed (weight,
+    edge-id) total order.
     """
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"method={method!r} is not ported yet ({_NOT_PORTED[method]})")
-    if method != "boruvka":
+    if method not in _ENGINES:
         raise ValueError(f"unknown method {method!r}; options: {METHODS}")
-    return boruvka_dist.minimum_spanning_forest(
-        graph, params=params, device=device, **kw)
+    return _ENGINES[method](graph, params=params, device=device, **kw)
 
 
 def minimum_spanning_forests(
@@ -100,13 +107,41 @@ def warm_bucket(
                                     device=device)
 
 
-def incremental_forest(graph, *args, **kw):
-    """Not ported yet: the evolving-graph handle of the JAX package."""
-    raise NotImplementedError(
-        f"incremental_forest is not ported yet ({_INCREMENTAL})")
+def incremental_forest(
+    graph,
+    method: str = "boruvka",
+    params: GHSParams = DEFAULT_PARAMS,
+    device=None,
+    **kw,
+) -> tuple[incremental.IncrementalForest, runtime.EngineStats]:
+    """Solve ``graph`` and wrap it as the evolving-graph handle that
+    :func:`apply_updates` takes.  Every engine gives the same forest, so
+    the handle is the same from any of them."""
+    res, stats = minimum_spanning_forest(
+        graph, method=method, params=params, device=device, **kw)
+    return incremental.IncrementalForest(
+        graph=runtime.as_graph(graph), forest=res), stats
 
 
-def apply_updates(forest, edge_batch, *args, **kw):
-    """Not ported yet: batched insert/delete updates of a solved forest."""
-    raise NotImplementedError(
-        f"apply_updates is not ported yet ({_INCREMENTAL})")
+def apply_updates(
+    forest: incremental.IncrementalForest,
+    edge_batch: incremental.EdgeBatch,
+    params: GHSParams = DEFAULT_PARAMS,
+    device=None,
+    mesh=None,
+    max_rounds=None,
+) -> tuple[incremental.IncrementalForest, incremental.IncrementalStats]:
+    """Apply one batched insert/delete update to a solved forest.
+
+    The updated graph is :func:`repro_torch.core.incremental.
+    apply_edge_batch` of the inputs; the surviving tree edges anchor a
+    cycle/cut probe on the device (one mask read a batch, beside the label
+    loop's flag reads), and the Borůvka engine solves only the uncertified
+    candidates.  The returned forest is bit-identical to a solve from
+    scratch of the updated graph.  ``stats.updates_applied`` /
+    ``stats.replacement_probes`` meter the pass.  ``device=None`` runs on
+    the CUDA card and raises when there is none.
+    """
+    return incremental.apply_updates(
+        forest, edge_batch, params=params, device=device, mesh=mesh,
+        max_rounds=max_rounds)

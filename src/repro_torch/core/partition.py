@@ -163,3 +163,32 @@ def batched_slots(batch_size: int, cap: int) -> np.ndarray:
     compaction."""
     return np.broadcast_to(
         np.arange(cap, dtype=np.int32), (batch_size, cap)).copy()
+
+
+def subgraph_by_mask(graph: Graph, mask: np.ndarray) -> "tuple[Graph, np.ndarray]":
+    """Canonical-order edge subset as its own :class:`Graph`.
+
+    Returns ``(sub, index)``: ``sub`` keeps every masked edge in canonical
+    order and ``index[j]`` is the canonical edge id behind sub edge ``j``.
+    The renumbering ``j ↦ index[j]`` is strictly increasing, so the
+    (weight, edge-id) election order of ``sub`` is the input's order
+    restricted to the subset, and an engine forest over ``sub`` is the
+    restriction of the forest over the input.  The filter and incremental
+    passes solve their survivors this way, under any partitioner.
+    """
+    mask = np.asarray(mask, dtype=bool)
+    index = np.flatnonzero(mask).astype(np.int64)
+    sub = Graph(num_vertices=graph.num_vertices,
+                src=graph.src[index], dst=graph.dst[index],
+                weight=graph.weight[index])
+    return sub, index
+
+
+def lift_mask(index: np.ndarray, sub_mask: np.ndarray,
+              num_edges: int) -> np.ndarray:
+    """Map a subset-edge bitmap back to canonical edge ids (the inverse of
+    :func:`subgraph_by_mask`'s renumbering)."""
+    sub_mask = np.asarray(sub_mask, dtype=bool)
+    mask = np.zeros(num_edges, dtype=bool)
+    mask[index[sub_mask]] = True
+    return mask

@@ -51,6 +51,15 @@ class EngineStats:
     ``"host"``: laid out on the host and uploaded; empty for drivers that
     do not stage through it).  ``rounds_per_graph`` is filled by the
     batched driver: one round count per input graph, in input order.
+
+    ``edges_filtered`` / ``filter_passes`` are filled by the Filter-Borůvka
+    hybrid (``core/filter_boruvka.py``): the edges its cycle-rule probe
+    proved non-MSF and the sample→solve→filter passes it ran.
+    ``updates_applied`` / ``replacement_probes`` are filled by the
+    incremental pass (``core/incremental.py``): the structural edge changes
+    a batch applied, and the non-tree edges that cross a component severed
+    by a deleted tree edge.  Engines that solve from scratch leave all four
+    at 0.
     """
 
     host_syncs: int = 0
@@ -58,6 +67,10 @@ class EngineStats:
     extra_syncs: int = 0
     edge_staging: str = ""
     rounds_per_graph: tuple = ()
+    edges_filtered: int = 0
+    filter_passes: int = 0
+    updates_applied: int = 0
+    replacement_probes: int = 0
     overlapped_syncs: int = 0
     speculative_intervals: int = 0
 
@@ -175,6 +188,20 @@ def resolve_collective(collective: str) -> str:
         raise ValueError(
             f"unknown collective {collective!r}; options: {COLLECTIVES}")
     return collective
+
+
+MULTI_GPU = "ROADMAP queue 1, item 13: multi-GPU"
+
+
+def require_one_device(mesh=None, collective: str = "pmin") -> None:
+    """Raise for what only a multi-GPU run has: a mesh (or a mesh axis)
+    and the compressed collective.  Neither is ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh runs are not ported yet ({MULTI_GPU})")
+    if resolve_collective(collective) == "compressed":
+        raise NotImplementedError(
+            f"collective='compressed' is not ported yet ({MULTI_GPU})")
 
 
 def resolve_interval_pipeline(depth: int) -> int:

@@ -13,12 +13,18 @@ caller:
 
 All three are exact min-reductions over identical keys, so they agree bit
 for bit.
+
+The converged-connectivity loop of the filter and incremental passes,
+:func:`connected_labels` and :func:`component_maxkey`, runs min-hooking and
+:func:`shortcut_relabel` (the pointer-jump kernel under ``use_pallas``) on
+the tensors' device until no active edge crosses two components.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import keys as keys_lib
+from repro_torch.core import runtime, union_find
 from repro_torch.kernels.segment_min.ops import run_end_min
 from repro_torch.kernels.spmv_minplus import ref
 from repro_torch.kernels.spmv_minplus.spmv_minplus import (
@@ -31,6 +37,15 @@ WEIGHT_BITS = 30
 WEIGHT_LIMIT_BITS = 0x3F800000  # ieee754_bits(1.0f)
 
 ELECT_LOWERINGS = ("scatter", "sort", "pallas")
+# Label-loop iterations queued between two host reads of the loop's flag.
+# Past the fixed point an iteration changes nothing (no active edge
+# crosses, ``hook_min`` returns the identity, and the shortcut of the
+# identity returns the labels), so the extra iterations of the last batch
+# are exact.  A read costs a wait, an idle iteration about ten kernels.
+# The rmat-20 filter's 16 levels need 39 iterations in all: on an H100
+# the level chain took 22.3, 22.4, 33.7 and 55.8 ms at 1, 2, 4 and 8
+# iterations a read, with 55, 37, 33 and 32 reads (chip_smoke.py phase 5c).
+LABEL_CHECK_EVERY = 2
 
 
 def sort_gate(num_vertices: int, num_edges: int) -> "tuple[int, int] | None":
@@ -121,3 +136,83 @@ def shortcut_relabel(parent: torch.Tensor, comp: torch.Tensor, *,
         return ref.shortcut_relabel(parent, comp)
     return pointer_jump(parent.to(torch.int32).contiguous(),
                         comp.to(torch.int32).contiguous()).to(comp.dtype)
+
+
+def connected_labels(src: torch.Tensor, dst: torch.Tensor,
+                     active: torch.Tensor, *, num_vertices: int,
+                     init: "torch.Tensor | None" = None,
+                     use_pallas: bool = False, stats=None,
+                     axis_name: "str | None" = None,
+                     collective: str = "pmin") -> torch.Tensor:
+    """Converged connected-component labels over the active edges.
+
+    Min-hooking and :func:`shortcut_relabel` until no active edge crosses
+    two components; each vertex ends labelled with the minimum vertex id
+    of its component (int32, canonical, so comparable across callers).
+    ``init`` warm-starts the loop from labels whose equal entries are
+    already connected under ``active`` (the nested threshold levels of the
+    filter); min-id labels stay canonical under that refinement, and so
+    keep the pointer-jump kernel's ``parent[i] <= i`` contract.
+
+    The loop runs on the tensors' device.  The reference runs it inside
+    one device ``while_loop``; here the host reads a crossing flag before
+    the first iteration and after every :data:`LABEL_CHECK_EVERY`
+    iterations, and
+    each such read adds one to ``stats.host_syncs`` and
+    ``stats.extra_syncs`` when ``stats`` is given.  ``active`` must be
+    False on padding lanes; endpoints are clipped into ``[0, n)`` before
+    the gathers, so out-of-range padding vertices are safe.  ``axis_name``
+    and ``collective="compressed"`` belong to mesh runs, not ported yet.
+    """
+    runtime.require_one_device(axis_name, collective)
+    n = num_vertices
+    si = src.clamp(0, n - 1).to(torch.int64)
+    di = dst.clamp(0, n - 1).to(torch.int64)
+    comp = (torch.arange(n, dtype=torch.int32, device=src.device)
+            if init is None else init.to(torch.int32))
+
+    def crossing(comp):
+        cs, cd = comp[si], comp[di]
+        return cs, cd, active & (cs != cd)
+
+    cs, cd, alive = crossing(comp)
+    while True:
+        more = bool(alive.any())             # the loop's one host read
+        if stats is not None:
+            stats.host_syncs += 1
+            stats.extra_syncs += 1
+        if not more:
+            return comp
+        for _ in range(LABEL_CHECK_EVERY):
+            parent = union_find.hook_min(n, torch.maximum(cs, cd),
+                                         torch.minimum(cs, cd), alive)
+            comp = shortcut_relabel(parent, comp, use_pallas=use_pallas)
+            cs, cd, alive = crossing(comp)
+
+
+def component_maxkey(src: torch.Tensor, dst: torch.Tensor, key: torch.Tensor,
+                     active: torch.Tensor, *, num_vertices: int,
+                     init: "torch.Tensor | None" = None,
+                     use_pallas: bool = False, stats=None,
+                     axis_name: "str | None" = None,
+                     collective: str = "pmin"
+                     ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The loop of :func:`connected_labels`, then one scatter-max of the
+    packed keys onto the converged labels.  Returns ``(comp, maxkey)``:
+    ``maxkey[v]`` is the largest key of an active edge in ``v``'s
+    component, or unsigned 0 (``keys.SIGN`` in the flipped form) where the
+    component has none; no live key is 0, since weights are positive.
+    Signed order of flipped keys is the reference's unsigned order, so the
+    max is exact."""
+    comp = connected_labels(src, dst, active, num_vertices=num_vertices,
+                            init=init, use_pallas=use_pallas, stats=stats,
+                            axis_name=axis_name, collective=collective)
+    n = num_vertices
+    # At convergence no active edge crosses, so one endpoint names the
+    # component; inactive lanes write one extra slot that is dropped.
+    seg = comp[src.clamp(0, n - 1).to(torch.int64)].to(torch.int64)
+    mx = torch.full((n + 1,), keys_lib.SIGN, dtype=torch.int64,
+                    device=key.device)
+    mx.scatter_reduce_(0, torch.where(active, seg, n),
+                       torch.where(active, key, keys_lib.SIGN), "amax")
+    return comp, mx[comp.to(torch.int64)]

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import boruvka_dist, kruskal_ref, mst_api, pipeline
+from repro_torch.core import boruvka_dist, incremental, kruskal_ref, mst_api
+from repro_torch.core import pipeline
 from repro_torch.core import keys
 from repro_torch.core.graph import Graph
 from repro_torch.core.params import GHSParams
@@ -284,9 +285,12 @@ def test_capacity_and_knob_errors(ref):
         mst_api.solve_packed(pipeline.pack_bucket([g], 2, 8),
                              params=GHSParams(round_loop="host"),
                              device="cpu")
-    for entry in (mst_api.incremental_forest, mst_api.apply_updates):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            entry(g, None)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        mst_api.incremental_forest(g, method="ghs", device="cpu")
+    state, _ = mst_api.incremental_forest(g, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        mst_api.apply_updates(state, incremental.EdgeBatch.make(),
+                              device="cpu", mesh=object())
 
 
 def test_inf_sentinel_weights_rejected(ref):

@@ -202,9 +202,13 @@ def test_knob_validation_and_unported_paths():
         with pytest.raises(NotImplementedError):
             mst_api.minimum_spanning_forest(g, params=GHSParams(**unported),
                                             device="cpu")
-    for method in ("ghs", "filter_boruvka"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mst_api.minimum_spanning_forest(g, method="ghs", device="cpu")
+    for unported in (dict(mesh=object()),
+                     dict(params=GHSParams(collective="compressed"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mst_api.minimum_spanning_forest(g, method=method, device="cpu")
+            mst_api.minimum_spanning_forest(g, method="filter_boruvka",
+                                            device="cpu", **unported)
     with pytest.raises(ValueError):
         mst_api.minimum_spanning_forest(g, method="nope", device="cpu")
     for loop in ("device", "host"):
