@@ -5,6 +5,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --ghs-scales 16,18`` only times ``method="ghs"``
+on rmat at those scales: how phase 5e's scale was chosen.)
+
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. card and build — the card's name and power limit, the torch and CUDA
@@ -79,6 +82,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       the card; the ledger, the candidates as a share of m, K3's launches
       and the label loop's reads, the update's wall time beside the fresh
       solve's;
+5d. the MST service (``launch/serve.py``), on the card:
+   a. the JAX package's serving settings (8 lanes, 50 ms, 64 queued, 256
+      vertices, 1,024 edges): ``warmup`` timed, then 160 graphs (its serving
+      workload: rmat scales 2 to 8, degree 8, every 16th at 32 and shed)
+      offered by ``run_poisson`` at 5, 15 and 40 graphs/s; p50, p99 and mean
+      latency, graphs/s, flushes by trigger, ghost lanes and sheds; every
+      served forest equal to Kruskal's and to its batched solve;
+   b. phase 5b's corpus (256 pipeline rmat graphs, scales 8 to 12) at 4,096
+      vertices and 65,536 edges with ``use_pallas=True``, warmup timed,
+      offered at 200 and 800 graphs/s, checked as in (a);
+   c. 16 update requests (pipeline rmat scale 10, 64 inserts and 64 deletes
+      each), each equal to a standalone ``apply_updates`` on the card;
+5e. the paper-faithful GHS engine, ``method="ghs"``, on the card:
+   a. rmat scale 10 under both round loops and the five ablation settings,
+      each forest equal to Kruskal's, the interval kernel launched once an
+      interval (device loop) or a superstep (host loop) and nothing else;
+   b. the interval kernel against its plain version on every ``ShardState``
+      array after each interval at rmat scale 8, every setting, bit for bit;
+      its instances' registers, stack and spills;
+   c. rmat scale GHS_BIG_SCALE: ``init_shards``' host time, the solve's
+      supersteps, intervals, messages, wall time and ns a message (one
+      profiler window) beside the Borůvka solve of the same graph, the
+      forest equal to the numpy oracle; its first interval, kernel against
+      plain on the whole state, timed beside its bound;
 6. the LM serving path, Qwen1.5-0.5B at its full config in bf16:
    a. the attention kernels (flash attention for prefill, decode attention
       for each decode step) against their plain versions, within the
@@ -186,6 +213,20 @@ FILTER_RUNS = 3                 # filter_boruvka solves a round body
 LABEL_CHECK_SWEEP = (1, 2, 4, 8)  # label-loop iterations between flag reads
 UPDATE_BATCHES = 3              # chained apply_updates batches
 UPDATE_SIZE = 8192              # inserts, and deletes, a batch
+SERVE_KNOBS = dict(serve_lanes=8, serve_max_wait_ms=50.0,  # the JAX
+                   serve_max_queue=64, batch_max_vertices=256,  # package's
+                   batch_max_edges=1024)      # serving settings
+SERVE_RATES = (5.0, 15.0, 40.0)  # offered graphs/s
+SERVE_REQUESTS = 160
+CORPUS_SERVE_KNOBS = dict(SERVE_KNOBS, batch_max_vertices=4096,
+                          batch_max_edges=65536, use_pallas=True)
+CORPUS_SERVE_RATES = (200.0, 800.0)  # the corpus of phase 5b, offered
+SERVE_UPDATES = 16              # update requests: pipeline rmat scale 10,
+SERVE_UPDATE_SCALE = 10
+SERVE_UPDATE_SIZE = 64          # inserts, and deletes, a request
+GHS_SCALE = 10                  # every knob of the GHS engine
+GHS_KERNEL_SCALE = 8            # the interval kernel against its plain version
+GHS_BIG_SCALE = 17              # the largest rmat scale solved within 60 s
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 LM_ARCH = "qwen1.5-0.5b"        # the served model, full config, bf16
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 512
@@ -1190,7 +1231,7 @@ def _sync_checked_intervals(torch):
     return patched()
 
 
-def phase_batched(torch, record) -> dict:
+def phase_batched(torch, record) -> tuple[dict, tuple]:
     """Phase 5b(c): a corpus of CORPUS_GRAPHS pipeline rmat graphs (degree
     32, seed i, scales CORPUS_SCALES in turn) solved in buckets with
     ``use_pallas=True`` under both round bodies, every interval dispatch
@@ -1201,7 +1242,8 @@ def phase_batched(torch, record) -> dict:
     and to Kruskal, its rounds to the single solve's.  Then graphs a second
     of ``minimum_spanning_forests`` over the corpus (median of
     CORPUS_TIMED_RUNS) beside the single solves in a loop.  Returns the K1
-    launches of one corpus solve."""
+    launches of one corpus solve, and the corpus (its host graphs and their
+    Kruskal forests) for phase 5d."""
     from repro_torch import kernels
     from repro_torch.core import boruvka_dist, kruskal_ref, mst_api, pipeline
     from repro_torch.core.params import GHSParams
@@ -1312,7 +1354,7 @@ def phase_batched(torch, record) -> dict:
     record["batched"] = dict(build_s=build_s, runs=rec, shapes=[
         (b.n_pad, b.cap, b.batch_size, g is None)
         for b, g in zip(batches, gates)])
-    return out
+    return out, (mirrors, oracles)
 
 
 def _same_forest(a, b) -> bool:
@@ -1498,19 +1540,19 @@ def phase_filter(torch, graph, oracle, forests, record) -> dict:
     return out
 
 
-def _update_batch(np, rng, state):
-    """UPDATE_SIZE inserts and UPDATE_SIZE deletes: random pairs with
-    float32 weights in (0, 1); half the deletes tree edges of the current
-    forest, half non-tree edges; one deleted tree edge re-inserted at half
-    its weight (so lighter)."""
+def _update_batch(np, rng, state, size=UPDATE_SIZE):
+    """``size`` inserts and ``size`` deletes: random pairs with float32
+    weights in (0, 1); half the deletes tree edges of the current forest,
+    half non-tree edges; one deleted tree edge re-inserted at half its
+    weight (so lighter)."""
     from repro_torch.core.incremental import EdgeBatch
-    g, half = state.graph, UPDATE_SIZE // 2
+    g, half = state.graph, size // 2
     tree = rng.choice(np.flatnonzero(state.forest.edge_mask), half,
                       replace=False)
     other = rng.choice(np.flatnonzero(~state.forest.edge_mask), half,
                        replace=False)
     dels = np.concatenate([tree, other])
-    n, k = g.num_vertices, UPDATE_SIZE - 1
+    n, k = g.num_vertices, size - 1
     again = tree[0]
     return EdgeBatch(
         insert_src=np.append(rng.integers(0, n, k), g.src[again]).astype(
@@ -2652,6 +2694,395 @@ def phase_hybrid_serve(torch, record) -> dict:
     return {"selective_scan": jamba_run["launches"]["selective_scan"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: the MST service
+# ---------------------------------------------------------------------------
+
+def _serve_workload(np):
+    """The JAX package's serving workload (``launch/serve.py`` ``main``):
+    SERVE_REQUESTS rmat graphs of scales 2 to 8 at degree 8, every 16th at
+    degree 32 (over the edge cap, so shed), from seed 0."""
+    from repro_torch.core import generators
+    rng = np.random.default_rng(0)
+    top = max(SERVE_KNOBS["batch_max_vertices"].bit_length() - 1, 2)
+    return [generators.generate(
+        "rmat", int(rng.integers(2, top + 1)),
+        avg_degree=8 if i % 16 else 32, seed=int(rng.integers(0, 2**31)))
+        for i in range(SERVE_REQUESTS)]
+
+
+def _service_run(torch, label, svc, graphs, rate, oracles) -> dict:
+    """``run_poisson`` at ``rate`` on the real clock; every served forest
+    equal to Kruskal's and to its batched solve on the card."""
+    from repro_torch import kernels
+    from repro_torch.core import mst_api
+    from repro_torch.launch import serve
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    futs = serve.run_poisson(svc, graphs, rate=rate, seed=0)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    served = [(i, f.result()) for i, f in enumerate(futs) if f is not None]
+    batched, _ = mst_api.minimum_spanning_forests(
+        [graphs[i] for i, _ in served], params=svc.params)
+    for (i, res), b in zip(served, batched):
+        if not (_same_forest(res, oracles[i]) and _same_forest(res, b)):
+            raise AssertionError(f"{label} request {i}: forest != Kruskal "
+                                 f"or its batched solve")
+    s = svc.stats.summary()
+    _log(f"service {label} at {rate:g} graphs/s: {len(graphs)} offered in "
+         f"{wall:.3f} s; p50 {s['p50_ms']} ms, p99 {s['p99_ms']} ms, mean "
+         f"{s['mean_ms']} ms, {s['graphs_per_s']} graphs/s; flushes size "
+         f"{s['size_flushes']} deadline {s['deadline_flushes']} drain "
+         f"{s['drain_flushes']}; ghost lanes {s['ghost_lanes']}; shed "
+         f"{s['shed_oversize']} oversize + {s['shed_queue_full']} queue full; "
+         f"max queue {s['max_queue_depth']}; launches {counts}; every forest "
+         f"= Kruskal = its batched solve")
+    return dict(rate=rate, wall_s=wall, launches=counts, **s)
+
+
+def phase_service(torch, record, corpus) -> None:
+    """Phase 5d: ``launch/serve.py``'s ``MSTService`` on the card.
+    (a) The JAX package's serving settings (SERVE_KNOBS): ``warmup`` timed
+    (its 288 (shape, width) pairs), then SERVE_REQUESTS graphs offered by
+    ``run_poisson`` at each of SERVE_RATES; (b) the corpus of phase 5b (256
+    pipeline rmat graphs, scales 8 to 12) at CORPUS_SERVE_KNOBS, warmup
+    timed, offered at each of CORPUS_SERVE_RATES (``corpus``: phase 5b's
+    host graphs and Kruskal forests); every served forest equal to
+    Kruskal's and to its batched solve.  (c) SERVE_UPDATES update
+    requests (pipeline rmat scale SERVE_UPDATE_SCALE, SERVE_UPDATE_SIZE
+    inserts and deletes each), each equal to a standalone ``apply_updates``
+    on the card."""
+    import numpy as np
+    from repro_torch.core import kruskal_ref, mst_api, pipeline
+    from repro_torch.core.params import GHSParams
+    from repro_torch.launch import serve
+    rec = dict(settings={})
+    graphs = _serve_workload(np)
+    settings = [("serving", SERVE_KNOBS, SERVE_RATES, graphs,
+                 [kruskal_ref.kruskal(g) for g in graphs]),
+                ("corpus", CORPUS_SERVE_KNOBS, CORPUS_SERVE_RATES, *corpus)]
+    for label, knobs, rates, graphs, oracles in settings:
+        params = GHSParams(**knobs)
+        warm = serve.MSTService(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warmed = warm.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        _log(f"service {label}: warmup {warmed} (shape, width) pairs in "
+             f"{warm_s:.3f} s")
+        runs = [_service_run(torch, label, serve.MSTService(params), graphs,
+                             rate, oracles) for rate in rates]
+        rec["settings"][label] = dict(knobs=knobs, warmed=warmed,
+                                      warm_s=warm_s, runs=runs)
+
+    params = GHSParams(**CORPUS_SERVE_KNOBS)
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for i in range(SERVE_UPDATES):
+        g = pipeline.build(pipeline.GraphSpec(
+            "rmat", SERVE_UPDATE_SCALE, avg_degree=32, seed=1000 + i))
+        state, _ = mst_api.incremental_forest(g, params=params)
+        reqs.append((state, _update_batch(np, rng, state, SERVE_UPDATE_SIZE)))
+    svc = serve.MSTService(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [svc.submit_update(state, batch) for state, batch in reqs]
+    svc.poll()
+    svc.drain()
+    upd_s = time.perf_counter() - t0
+    for i, ((state, batch), fut) in enumerate(zip(reqs, futs)):
+        alone, _ = mst_api.apply_updates(state, batch, params=params)
+        got = fut.result()
+        if not (_same_forest(got.forest, alone.forest)
+                and _same_graph(got.graph, alone.graph)):
+            raise AssertionError(f"update request {i} != apply_updates")
+    s = svc.stats.summary()
+    _log(f"service updates: {SERVE_UPDATES} requests (pipeline rmat-"
+         f"{SERVE_UPDATE_SCALE}, {SERVE_UPDATE_SIZE} inserts and deletes "
+         f"each) served in {upd_s:.3f} s, flushes size {s['size_flushes']} "
+         f"drain {s['drain_flushes']}, updates_applied "
+         f"{svc.stats.updates_applied}, replacement_probes "
+         f"{svc.stats.replacement_probes}; each = apply_updates")
+    rec["updates"] = dict(wall_s=upd_s, **s,
+                          updates_applied=svc.stats.updates_applied,
+                          replacement_probes=svc.stats.replacement_probes)
+    record["service"] = rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: the paper-faithful GHS engine
+# ---------------------------------------------------------------------------
+
+GHS_ABLATIONS = {     # tests/test_mst_correctness.py's five settings
+    "base": dict(use_hashing=False, relaxed_test_queue=False,
+                 compress_messages=False),
+    "binary": dict(use_hashing=False, hash_table_factor=-1.0,
+                   relaxed_test_queue=False),
+    "check1": dict(check_frequency=1),
+    "check7": dict(check_frequency=7),
+    "final": dict(),
+}
+
+
+def _ghs_registers(ptxas: str) -> dict:
+    """Registers, spills and stack of each interval-kernel instance, keyed
+    ``method/lanes/relaxed``."""
+    out, key = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"ghs_intervalILi(\d)ELi(\d)ELb(\d)E", line)
+        if "entry function" in line:
+            key = (f"{('hash', 'linear', 'binary')[int(m[1])]}/{m[2]}/"
+                   f"{'relaxed' if m[3] == '1' else 'strict'}") if m else None
+            continue
+        if key is None:
+            continue
+        r = out.setdefault(key, {})
+        for field, pattern in (("registers", r"Used (\d+) registers"),
+                               ("stack_bytes", r"(\d+) bytes stack frame"),
+                               ("spill_bytes", r"(\d+) bytes spill stores")):
+            m = re.search(pattern, line)
+            if m:
+                r[field] = int(m[1])
+    return out
+
+
+def _ghs_lockstep(torch, dev, arrays, topo, params, label) -> int:
+    """The kernel on the card and its plain version on the CPU from the
+    same state, an interval at a time until silence: every ShardState
+    array and the scalar vector equal after each interval (raises
+    otherwise).  Returns the intervals compared."""
+    from repro_torch.core import ghs_state
+    from repro_torch.kernels.ghs_superstep import ghs_superstep, ref
+    cfg = ref.config(topo, params)
+    cpu = ghs_state.upload(arrays, "cpu")
+    card = ghs_state.upload(arrays, dev)
+    n_steps = 1 if params.round_loop == "host" else cfg.check
+    scal_c = torch.zeros(3, dtype=torch.int32)
+    scal_g = scal_c.to(dev)
+    for k in range(100_000):
+        scal_g = ghs_superstep.interval(card, scal_g, n_steps, cfg)
+        scal_c = ghs_superstep.interval(cpu, scal_c, n_steps, cfg)
+        got, want = ghs_state.host_arrays(card), ghs_state.host_arrays(cpu)
+        bad = [f for f in want if not _np_equal(got[f], want[f])]
+        if bad or scal_g.tolist() != scal_c.tolist():
+            raise AssertionError(f"ghs_superstep {label} interval {k}: "
+                                 f"kernel != plain on {bad or 'scalars'}")
+        _, silent, err = scal_c.tolist()
+        if err or silent >= cfg.empty_needed:
+            return k + 1
+    raise AssertionError(f"ghs_superstep {label}: no silence")
+
+
+def _np_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def _ghs_first_interval(torch, dev, graph, params) -> dict:
+    """The first interval of ``graph``'s solve: the kernel on the card
+    (CUDA events, the host ahead; three fresh copies of the state) and
+    the plain version on the CPU from the same state, every array equal
+    after it; the bytes it must touch."""
+    import numpy as np
+    from repro_torch.core import ghs_state
+    from repro_torch.kernels.ghs_superstep import ghs_superstep, ref
+    topo, shards = ghs_state.host_shards(graph, 1, params)
+    cfg = ref.config(topo, params)
+    before = shards[0]
+    times = []
+    for _ in range(3):
+        card = ghs_state.upload(before, dev)
+        scal = torch.zeros(3, dtype=torch.int32, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        _hold_device(torch, 1.0)
+        start.record()
+        out = ghs_superstep.interval(card, scal, cfg.check, cfg)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    cpu = ghs_state.upload(before, "cpu")
+    t0 = time.perf_counter()
+    plain = ghs_superstep.interval(cpu, torch.zeros(3, dtype=torch.int32),
+                                   cfg.check, cfg)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got, want = ghs_state.host_arrays(card), ghs_state.host_arrays(cpu)
+    bad = [f for f in want if not _np_equal(got[f], want[f])]
+    if bad or out.tolist() != plain.tolist():
+        raise AssertionError(f"ghs_superstep first interval: kernel != plain "
+                             f"on {bad or 'scalars'}")
+    popped = int(want["n_processed"])
+    pushed = int(want["n_sent_local"]) + int(want["n_sent_remote"])
+    changed = sum(int((want[f] != before[f]).sum()) for f in (
+        "sn", "ln", "fnw", "fne", "find_count", "in_branch", "best_edge",
+        "best_w", "best_e", "test_edge", "se", "hist_act", "hist_sent"))
+    # Each popped message read once and each pushed one written once (its
+    # words and its position lane), one hash slot (three words) a popped
+    # message, and each state word that changed written once.
+    nbytes = 4 * ((topo.lanes + 1) * (popped + pushed) + 3 * popped
+                  + changed)
+    return dict(ms=statistics.median(times), times_ms=times,
+                plain_ms=plain_ms, supersteps=out.tolist()[0],
+                messages=popped, pushed=pushed, changed_words=changed,
+                nbytes=nbytes)
+
+
+def phase_ghs(torch, dev, record, ptxas: str) -> tuple[dict, int]:
+    """Phase 5e: ``minimum_spanning_forest(method="ghs")`` on the card.
+    (a) rmat-GHS_SCALE under both round loops and the five ablations, each
+    forest equal to Kruskal's, the launches one an interval (device loop)
+    or one a superstep (host loop); (b) the interval kernel against its
+    plain version on the whole state after every interval at rmat-
+    GHS_KERNEL_SCALE, every ablation and both loops, bit for bit; (c)
+    rmat-GHS_BIG_SCALE: ``init_shards``' host time, the solve (supersteps,
+    intervals, messages, wall, ns a message) beside the Borůvka solve of
+    the same graph, one profiler window; its first interval, kernel against
+    plain, timed beside its bound.  Returns the kernels-line row and the
+    launches of the big solve."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import generators, ghs_state, kruskal_ref, mst_api
+    from repro_torch.core.params import GHSParams
+    from repro_torch.kernels import KERNELS
+    rec = dict(registers=_ghs_registers(ptxas), solves={})
+    _log(f"ghs_superstep instances (registers, stack, spills): "
+         f"{rec['registers']}")
+
+    g = generators.rmat(GHS_SCALE, seed=SEED)
+    oracle = kruskal_ref.kruskal(g)
+    for loop in ("device", "host"):
+        for name, knobs in GHS_ABLATIONS.items():
+            params = GHSParams(round_loop=loop, **knobs)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, st = mst_api.minimum_spanning_forest(g, method="ghs",
+                                                      params=params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = kernels.LAUNCHES["ghs_superstep"]
+            want = (st.supersteps if loop == "host"
+                    else st.intervals + st.speculative_intervals)
+            if not _same_forest(res, oracle):
+                raise AssertionError(f"ghs rmat-{GHS_SCALE} {loop} {name}: "
+                                     f"forest != Kruskal")
+            if n != want or any(v for k, v in kernels.LAUNCHES.items()
+                                if k != "ghs_superstep"):
+                raise AssertionError(f"ghs {loop} {name}: launches "
+                                     f"{dict(kernels.LAUNCHES)}, expected "
+                                     f"{want} of the interval kernel")
+            _log(f"ghs rmat-{GHS_SCALE} (m={g.num_edges}) round_loop={loop} "
+                 f"{name}: {wall:.4f} s, supersteps {st.supersteps}, "
+                 f"intervals {st.intervals}, messages {st.processed} "
+                 f"({wall / st.processed * 1e9:.0f} ns each), launches {n}, "
+                 f"halted {st.halted_fragments}; forest = Kruskal")
+            rec["solves"][f"{loop}/{name}"] = dict(
+                wall_s=wall, supersteps=st.supersteps, intervals=st.intervals,
+                processed=st.processed, launches=n)
+
+    small = generators.rmat(GHS_KERNEL_SCALE, seed=SEED)
+    compared = {}
+    for loop in ("device", "host"):
+        for name, knobs in GHS_ABLATIONS.items():
+            params = GHSParams(round_loop=loop, **knobs)
+            topo, shards = ghs_state.host_shards(small, 1, params)
+            compared[f"{loop}/{name}"] = _ghs_lockstep(
+                torch, dev, shards[0], topo, params, f"{loop}/{name}")
+    _log(f"ghs_superstep rmat-{GHS_KERNEL_SCALE}: kernel = plain on every "
+         f"ShardState array after each interval, bit for bit ({compared} "
+         f"intervals)")
+    rec["lockstep_intervals"] = compared
+
+    big = generators.rmat(GHS_BIG_SCALE, seed=SEED)
+    oracle = kruskal_ref.boruvka_numpy(big)
+    t0 = time.perf_counter()
+    ghs_state.host_shards(big, 1, GHSParams())
+    init_s = time.perf_counter() - t0
+    first = _ghs_first_interval(torch, dev, big, GHSParams())
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = mst_api.minimum_spanning_forest(big)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not _same_forest(res, oracle):
+        raise AssertionError(f"Borůvka rmat-{GHS_BIG_SCALE} != oracle")
+    kernels.reset_launches()
+    out = []
+    prof = _profile_window(
+        torch, lambda: out.append(mst_api.minimum_spanning_forest(
+            big, method="ghs")), f"ghs rmat-{GHS_BIG_SCALE}",
+        "chip_smoke_profile_ghs.txt", kernel_names=("ghs_interval",))
+    res, st = out[0]
+    launches = kernels.LAUNCHES["ghs_superstep"]
+    if not _same_forest(res, oracle):
+        raise AssertionError(f"ghs rmat-{GHS_BIG_SCALE}: forest != oracle")
+    if launches != st.intervals + st.speculative_intervals:
+        raise AssertionError(f"ghs rmat-{GHS_BIG_SCALE}: {launches} launches "
+                             f"for {st.intervals} intervals")
+    kernel_ms = sum(ms for key, ms, _ in prof["top"] if "ghs_interval" in key)
+    wall = prof["window_s"]
+    _log(f"ghs rmat-{GHS_BIG_SCALE} (n={big.num_vertices}, m="
+         f"{big.num_edges}): init_shards on the host {init_s:.3f} s; solve "
+         f"{wall:.3f} s, supersteps {st.supersteps}, intervals "
+         f"{st.intervals}, messages {st.processed} "
+         f"({wall / st.processed * 1e9:.0f} ns each; kernel {kernel_ms:.1f} ms in all, "
+         f"{kernel_ms / max(launches, 1):.3f} ms an interval), launches "
+         f"{launches}; Borůvka solve of the same graph median "
+         f"{statistics.median(walls):.4f} s ({[round(w, 4) for w in walls]}); "
+         f"forest = oracle")
+    bound_ms, bound_by = _bound_ms(first["nbytes"], 0)
+    _log(f"ghs_superstep first interval of rmat-{GHS_BIG_SCALE} "
+         f"({first['supersteps']} supersteps, {first['messages']} messages): "
+         f"{first['ms']:.3f} ms ({first['times_ms']}), plain "
+         f"{first['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms by bytes "
+         f"({first['nbytes']} bytes); kernel = plain on every array")
+    rec["big"] = dict(scale=GHS_BIG_SCALE, n=big.num_vertices,
+                      m=big.num_edges, init_s=init_s, wall_s=wall,
+                      supersteps=st.supersteps, intervals=st.intervals,
+                      processed=st.processed,
+                      ns_per_message=wall / st.processed * 1e9,
+                      kernel_ms=kernel_ms, launches=launches,
+                      boruvka_walls_s=walls, profile=prof, first=first)
+    record["ghs"] = rec
+    source, replaces = KERNELS["ghs_superstep"]
+    row = dict(name="ghs_superstep", route="cuda", source=source,
+               replaces=replaces, launches=0, bit_exact=True, max_abs_err=0,
+               ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None, lanes=first["messages"])
+    return row, launches
+
+
+def probe_ghs_scales(scales) -> int:
+    """``python3 chip_smoke.py --ghs-scales 16,18``: ``method="ghs"`` on
+    rmat at each scale (degree 32, seed SEED), its wall time, supersteps
+    and messages logged, the forest held against the numpy oracle; how
+    GHS_BIG_SCALE is chosen (the largest of 16-18 that ends within 60 s)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import generators, kruskal_ref, mst_api
+    _log(_card_line())
+    for scale in scales:
+        g = generators.rmat(scale, seed=SEED)
+        oracle = kruskal_ref.boruvka_numpy(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, st = mst_api.minimum_spanning_forest(g, method="ghs")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not _same_forest(res, oracle):
+            raise AssertionError(f"ghs rmat-{scale}: forest != oracle")
+        _log(f"ghs rmat-{scale} (m={g.num_edges}): {wall:.3f} s, supersteps "
+             f"{st.supersteps}, messages {st.processed}; forest = oracle")
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2711,7 +3142,7 @@ def main() -> int:
     pipe_launches = phase_pipeline_solve(torch, spec, pipe_host, record)
     del pipe_host
     torch.cuda.empty_cache()
-    pipe_launches["batched_k1"] = phase_batched(torch, record)
+    pipe_launches["batched_k1"], corpus = phase_batched(torch, record)
     record["pipeline_launches"] = pipe_launches
     record["pipeline_phase_s"] = time.perf_counter() - t0
     _log(f"phase 5b (graph pipeline, DeviceEdges solves, batched corpus): "
@@ -2726,6 +3157,18 @@ def main() -> int:
     _log(f"phase 5c (filter-Borůvka, incremental updates): "
          f"{record['filter_update_phase_s']:.1f} s; K3 launches "
          f"{record['filter_update_launches']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_service(torch, record, corpus)
+    del corpus
+    record["service_phase_s"] = time.perf_counter() - t0
+    _log(f"phase 5d (the MST service): {record['service_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ghs_row, launches["ghs_superstep"] = phase_ghs(torch, dev, record,
+                                                   logs["ghs_superstep"])
+    record["ghs_phase_s"] = time.perf_counter() - t0
+    _log(f"phase 5e (the GHS engine): {record['ghs_phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2756,6 +3199,7 @@ def main() -> int:
         "flash_attention": PARITY_LAYERS,
         "decode_attention": PARITY_LAYERS * (PARITY_GEN - 1)})
 
+    rows.append(ghs_row)
     for row in rows:
         row["launches"] = launches[row["name"]]
     record["seconds"] = time.perf_counter() - t_start
@@ -2771,4 +3215,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ghs-scales"]:
+        sys.exit(probe_ghs_scales(int(x) for x in sys.argv[2].split(",")))
     sys.exit(main())

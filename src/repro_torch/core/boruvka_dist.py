@@ -444,6 +444,15 @@ def _contract_lanes(comp, si, di, key, *, s_bits: int, c_bits: int):
             first.sum(1))
 
 
+def _rounds_to_converge(n_pad: int) -> int:
+    """Rounds after which every lane of an ``n_pad``-vertex bucket is done,
+    from any state: a round with a live edge merges every fragment that
+    has one with at least one other, so a component's fragments halve
+    each round (at most ceil(log2 n_pad) such rounds), and the round
+    after elects nothing; one round more is kept as a margin."""
+    return (max(n_pad, 1) - 1).bit_length() + 2
+
+
 def _run_interval_batch(comp, mask, src, dst, key, slot, done, rdone,
                         rounds: int, *, use_pallas: bool,
                         contract_bits, election: str = "scatter"):
@@ -453,8 +462,10 @@ def _run_interval_batch(comp, mask, src, dst, key, slot, done, rdone,
     ``mask``, the (B, cur_cap) edge arrays, ``done`` (B,) and ``rdone`` (B,)
     each lane's rounds so far.  A lane that is done is frozen (its labels
     and bitmap stay), so each lane follows the single-graph trajectory.
-    Every round is queued; ``r`` counts those started while some lane was
-    live, as the reference's loop stops at the first round with all done.
+    The rounds are queued, at most ``_rounds_to_converge(n_pad)`` of them
+    (any further one could change nothing); ``r`` counts those started
+    while some lane was live, as the reference's loop stops at the first
+    round with all done.
 
     ``contract_bits = (s_bits, c_bits)``: packed rounds
     (:func:`_one_round_packed`), then a per-lane :func:`_contract_lanes`
@@ -469,6 +480,7 @@ def _run_interval_batch(comp, mask, src, dst, key, slot, done, rdone,
     """
     bsz, n = comp.shape
     dev = comp.device
+    rounds = min(rounds, _rounds_to_converge(n))   # later ones change nothing
     si = _lane_index(src, n)
     di = _lane_index(dst, n)
     if contract_bits is not None:

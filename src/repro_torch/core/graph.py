@@ -110,3 +110,27 @@ def pad_edges(
         [graph.packed_keys, np.full(pad, keys_lib.INF_KEY, np.int64)])
     valid = np.concatenate([np.ones(m, bool), np.zeros(pad, bool)])
     return src, dst, key, valid
+
+
+def both_direction_arrays(
+    graph: Graph,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Unsorted both-direction incidence: (ends, neighbors, edge ids).
+
+    The one home of the mirroring convention (canonical edge i appears as
+    entries i and i+M); every adjacency builder sorts these by its own key
+    (the packed weight key for the GHS shards).
+    """
+    m = graph.num_edges
+    ends = np.concatenate([graph.src, graph.dst]).astype(np.int64)
+    nbrs = np.concatenate([graph.dst, graph.src]).astype(np.int64)
+    eidx = np.concatenate([np.arange(m, dtype=np.int64)] * 2)
+    return ends, nbrs, eidx
+
+
+def vertex_indptr(ends: np.ndarray, num_vertices: int) -> np.ndarray:
+    """CSR window offsets from (sorted-by-vertex) incidence endpoints."""
+    counts = np.bincount(ends, minlength=num_vertices).astype(np.int64)
+    indptr = np.zeros(num_vertices + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return indptr

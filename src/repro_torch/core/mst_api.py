@@ -1,25 +1,23 @@
 """Public MST API of the port — a thin façade over the engines.
 
-``method="boruvka"`` (the synchronous engine) and ``"filter_boruvka"``
-(the sampling hybrid, :mod:`.filter_boruvka`) are ported, as are batched
+``method="ghs"`` (the paper-faithful message-driven engine,
+:mod:`.ghs_message`), ``"boruvka"`` (the synchronous engine) and
+``"filter_boruvka"`` (the sampling hybrid, :mod:`.filter_boruvka`), batched
 solving and the incremental entries (:mod:`.incremental`).
-``method="ghs"`` raises ``NotImplementedError`` naming the ROADMAP item
-that will port it.
 """
 from __future__ import annotations
 
-from repro_torch.core import boruvka_dist, filter_boruvka, incremental, runtime
+from repro_torch.core import (boruvka_dist, filter_boruvka, ghs_message,
+                              incremental, runtime)
 from repro_torch.core.kruskal_ref import ForestResult
 from repro_torch.core.params import DEFAULT_PARAMS, GHSParams
 
 METHODS = ("ghs", "boruvka", "filter_boruvka")
 
 _ENGINES = {
+    "ghs": ghs_message.minimum_spanning_forest,
     "boruvka": boruvka_dist.minimum_spanning_forest,
     "filter_boruvka": filter_boruvka.minimum_spanning_forest,
-}
-_NOT_PORTED = {
-    "ghs": "ROADMAP queue 1, item 12: the paper-faithful GHS engine",
 }
 
 
@@ -38,17 +36,15 @@ def minimum_spanning_forest(
     through the host (``stats.edge_staging == "device"`` under the default
     ``block`` partitioner).  ``device=None`` runs on the CUDA card and
     raises when there is none; pass ``device="cpu"`` for the plain PyTorch
-    path.  ``method="filter_boruvka"`` samples, solves the sample, drops
-    the edges the cycle rule proves non-MSF and solves the survivors
-    (``params.filter_sample_rate`` / ``filter_levels`` /
-    ``filter_threshold``).  Returns ``(ForestResult, stats)``; the forest
-    is bit-identical to the JAX package's for every method and knob,
-    because every engine elects edges under the same packed (weight,
-    edge-id) total order.
+    path.  ``method="ghs"`` runs the message-driven engine (one kernel
+    launch an interval of supersteps).  ``method="filter_boruvka"``
+    samples, solves the sample, drops the edges the cycle rule proves
+    non-MSF and solves the survivors (``params.filter_sample_rate`` /
+    ``filter_levels`` / ``filter_threshold``).  Returns ``(ForestResult,
+    stats)``; the forest is bit-identical to the JAX package's for every
+    method and knob, because every engine elects edges under the same
+    packed (weight, edge-id) total order.
     """
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet ({_NOT_PORTED[method]})")
     if method not in _ENGINES:
         raise ValueError(f"unknown method {method!r}; options: {METHODS}")
     return _ENGINES[method](graph, params=params, device=device, **kw)

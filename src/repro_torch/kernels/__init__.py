@@ -7,7 +7,9 @@ runs the plain version and counts nothing.
 """
 from __future__ import annotations
 
-# name -> (source in the repo, the Pallas function it replaces)
+# name -> (source in the repo, the Pallas function it replaces; for
+# ghs_superstep, which replaces no Pallas kernel, the reference's device
+# loop)
 KERNELS = {
     "segmented_min2_scan": (
         "src/repro_torch/kernels/csrc/segscan.cu",
@@ -36,6 +38,9 @@ KERNELS = {
     "selective_scan": (
         "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "src/repro/kernels/mamba_scan/mamba_scan.py:52"),
+    "ghs_superstep": (
+        "src/repro_torch/kernels/csrc/ghs_superstep.cu",
+        "src/repro/core/ghs_message.py:591"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

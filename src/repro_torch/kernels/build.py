@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("segscan", "pointer_jump", "edge_hash", "flash_attention",
-           "decode_attention", "wkv6", "mamba_scan")
+           "decode_attention", "wkv6", "mamba_scan", "ghs_superstep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

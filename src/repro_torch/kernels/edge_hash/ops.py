@@ -1,7 +1,6 @@
 """Edge-hash ops: build the table on the host, pack it into records on the
-device once, look queries up there.  ``resolve_batch`` (the GHS
-superstep's pre-pass) comes with the GHS engine (ROADMAP queue 1, item
-12)."""
+device once, look queries up there; and ``resolve_batch``, the GHS
+superstep's early-exit pre-pass over an inbox."""
 from __future__ import annotations
 
 import numpy as np
@@ -50,3 +49,17 @@ def lookup(table, q_lv, q_u, *, use_pallas: bool = True,
     if use_pallas:
         return hash_lookup_records(records, q_lv, q_u)
     return ref.hash_lookup(*ref.unpack(records), q_lv, q_u)
+
+
+def resolve_batch(h_lv, h_u, h_pos, q_lv, q_u, valid, *,
+                  max_probes: int = 64) -> torch.Tensor:
+    """Batched (receiver, sender) → CSR-position pre-pass of the GHS
+    superstep's ingest: every valid incoming-message lane is resolved
+    against the shard's edge hash table in one early-exit lock-step probe
+    sweep (``ref.probe``).  Invalid lanes and lanes still unresolved after
+    ``max_probes`` rounds return -1; the dispatch loop falls back to the
+    scalar probe for those, so the pre-pass never changes results, only
+    skips work.  Tensors of one device; int32 out."""
+    return ref.probe(h_lv, h_u, h_pos, q_lv.to(torch.int32),
+                     q_u.to(torch.int32), done0=~valid,
+                     max_probes=max_probes)

@@ -285,9 +285,9 @@ def test_capacity_and_knob_errors(ref):
         mst_api.solve_packed(pipeline.pack_bucket([g], 2, 8),
                              params=GHSParams(round_loop="host"),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mst_api.incremental_forest(g, method="ghs", device="cpu")
     state, _ = mst_api.incremental_forest(g, device="cpu")
+    ghs_handle, _ = mst_api.incremental_forest(g, method="ghs", device="cpu")
+    assert np.array_equal(ghs_handle.forest.edge_mask, state.forest.edge_mask)
     with pytest.raises(NotImplementedError, match="item 13"):
         mst_api.apply_updates(state, incremental.EdgeBatch.make(),
                               device="cpu", mesh=object())
@@ -432,3 +432,42 @@ def test_gpu_fallback_launches_k1_once_a_round(cuda, monkeypatch, bsz):
         for g, r in zip(batch.graphs, res):
             assert np.array_equal(r.edge_mask,
                                   kruskal_ref.kruskal(g).edge_mask)
+
+
+def test_interval_queues_no_round_past_convergence(monkeypatch):
+    """A run-to-completion interval (``batch_check_frequency`` n_pad + 2,
+    the service's) queues at most ``_rounds_to_converge(n_pad)`` rounds,
+    and still ends every lane in one interval: on chains (the most rounds
+    Borůvka needs), stars and rmat graphs, packed and fallback buckets."""
+    from repro_torch.core import generators
+    from repro_torch.core.graph import preprocess
+    calls = []
+    for name in ("_one_round_packed", "_one_round"):
+        real = getattr(boruvka_dist, name)
+        monkeypatch.setattr(
+            boruvka_dist, name,
+            lambda *a, real=real, **k: calls.append(1) or real(*a, **k))
+    rng = np.random.default_rng(0)
+    for n in (1, 2, 3, 64, 257, 1024):
+        chain = preprocess(np.arange(n - 1), np.arange(1, n),
+                           rng.random(n - 1, dtype=np.float32) * .9 + .05, n)
+        star = preprocess(np.zeros(n - 1), np.arange(1, n),
+                          rng.random(n - 1, dtype=np.float32) * .9 + .05, n)
+        graphs = [chain, star, generators.rmat(max(n.bit_length() - 1, 1),
+                                               seed=n)]
+        for g in graphs:
+            n_pad, cap = pipeline.bucket_shape(g.num_vertices, g.num_edges)
+            for pallas in (False, True):
+                params = GHSParams(batch_check_frequency=n_pad + 2,
+                                   use_pallas=pallas)
+                calls.clear()
+                res, st = mst_api.solve_packed(
+                    pipeline.pack_bucket([g, g], n_pad, cap), params=params,
+                    device="cpu")
+                assert st.intervals == 1
+                bound = boruvka_dist._rounds_to_converge(n_pad)
+                assert len(calls) <= bound
+                assert max(st.rounds_per_graph) <= bound - 1
+                for r in res:
+                    assert np.array_equal(r.edge_mask,
+                                          kruskal_ref.kruskal(g).edge_mask)

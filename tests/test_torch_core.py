@@ -202,8 +202,11 @@ def test_knob_validation_and_unported_paths():
         with pytest.raises(NotImplementedError):
             mst_api.minimum_spanning_forest(g, params=GHSParams(**unported),
                                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mst_api.minimum_spanning_forest(g, method="ghs", device="cpu")
+    for unported in (dict(mesh=object()),
+                     dict(params=GHSParams(partitioner="hashed"))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            mst_api.minimum_spanning_forest(g, method="ghs", device="cpu",
+                                            **unported)
     for unported in (dict(mesh=object()),
                      dict(params=GHSParams(collective="compressed"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

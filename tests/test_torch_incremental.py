@@ -403,13 +403,12 @@ def test_handle_from_any_engine_is_equivalent(ref):
     rg = ref.generators.generate("rmat", 6, seed=13)
     batch = Pair(ref, rg).random_batch(np.random.default_rng(4))
     masks = {}
-    for method in ("boruvka", "filter_boruvka"):
+    for method in ("boruvka", "filter_boruvka", "ghs"):
         p = Pair(ref, rg, method=method)
         p.update(*batch, ctx=method)
         masks[method] = p.state.forest.edge_mask
     assert np.array_equal(masks["boruvka"], masks["filter_boruvka"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mst_api.incremental_forest(_port(rg), method="ghs", device="cpu")
+    assert np.array_equal(masks["boruvka"], masks["ghs"])
 
 
 def test_update_levels_sweep_identical(ref):
