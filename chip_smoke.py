@@ -101,11 +101,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    b. the interval kernel against its plain version on every ``ShardState``
       array after each interval at rmat scale 8, every setting, bit for bit;
       its instances' registers, stack and spills;
-   c. rmat scale GHS_BIG_SCALE: ``init_shards``' host time, the solve's
-      supersteps, intervals, messages, wall time and ns a message (one
-      profiler window) beside the Borůvka solve of the same graph, the
-      forest equal to the numpy oracle; its first interval, kernel against
-      plain on the whole state, timed beside its bound;
+   c. rmat scale GHS_BIG_SCALE (16: 17 until the mesh phase came): the
+      host time of ``init_shards``, the solve's supersteps, intervals,
+      messages, wall time and ns a message (one profiler window) beside the
+      Borůvka solve of the same graph, the forest equal to the numpy
+      oracle; its first interval, kernel against plain on the whole state,
+      timed beside its bound;
+5f. the mesh paths, S shards of a ``Mesh`` on the one card:
+   a. ``minimum_spanning_forest(graph, method="boruvka", mesh=Mesh(S))`` on
+      phase 3's rmat-20 at S = 2, 4 and 8, both round bodies, both
+      collectives (``pmin``, the compressed exchange), the block and hashed
+      partitioners, ``use_pallas=True``, ``check_frequency=2``: each
+      forest equal to the numpy oracle and to phase 3's one-shard forest;
+      the median wall of three (one run under ``hashed``), rounds,
+      intervals, host syncs, comm bytes, the collective each interval ran,
+      and the K1, K2 and K3 launches of each run counted from 0;
+   b. ``method="ghs"`` at S = 4 on 5e's rmat-16 (910,144 edges) under the
+      block, hashed and balanced partitioners, and (block) without the
+      relaxed Test queue, the edge hash or message compression, each
+      forest equal to Kruskal's, the interval kernel (one cooperative
+      launch of 4 blocks) once an interval: supersteps, messages, remote
+      messages and bytes, wall and ns a message beside 5e's one-shard
+      solve;
+   c. the S-block interval kernel against its plain version on every
+      ``ShardState`` array of every shard after every interval, at rmat-8
+      for S = 2 and 4 under both loops, and on rmat-16's first interval at
+      S = 4, timed beside its bound;
 6. the LM serving path, Qwen1.5-0.5B at its full config in bf16:
    a. the attention kernels (flash attention for prefill, decode attention
       for each decode step) against their plain versions, within the
@@ -226,7 +247,20 @@ SERVE_UPDATE_SCALE = 10
 SERVE_UPDATE_SIZE = 64          # inserts, and deletes, a request
 GHS_SCALE = 10                  # every knob of the GHS engine
 GHS_KERNEL_SCALE = 8            # the interval kernel against its plain version
-GHS_BIG_SCALE = 17              # the largest rmat scale solved within 60 s
+GHS_BIG_SCALE = 16              # rmat-17 (28 s) cut to 16 for phase 5f's time
+MESH_SHARDS = (2, 4, 8)         # Borůvka over S shards on the card (5f)
+MESH_RUNS = 3                   # block partitions; hashed: one (host layout)
+MESH_CHECK_FREQUENCY = 2        # the compressed exchange carries late intervals
+GHS_MESH_SHARDS = 4             # GHS over S shards on GHS_BIG_SCALE (5f)
+GHS_MESH_KERNEL_SHARDS = (2, 4)  # the S-block kernel against its plain version
+GHS_MESH_SETTINGS = {           # (partitioner, the paper's optimizations)
+    "block": dict(),
+    "hashed": dict(partitioner="hashed"),
+    "balanced": dict(partitioner="balanced"),
+    "fifo": dict(relaxed_test_queue=False),   # no separate Test queue (C1)
+    "linear": dict(use_hashing=False),        # no edge hash (C2)
+    "raw": dict(compress_messages=False),     # 8-lane messages (C3)
+}
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 LM_ARCH = "qwen1.5-0.5b"        # the served model, full config, bf16
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 512
@@ -618,10 +652,12 @@ def phase_scan32(torch, dev, graph, record) -> dict:
     n, m = graph.num_vertices, graph.num_edges
     # Round 1 of the host loop: its upload, and the lanes its election
     # sorts (``segment_min`` hands the kernel ``seg[order], val[order]``).
-    src_d, dst_d, wb_d, _ = _upload(_host_lanes(graph), 8, dev)
+    src_d, dst_d, wb_d, _ = (t.view(-1) for t in
+                             _upload(_host_lanes(graph), 8, dev))
     comp = torch.arange(n, dtype=torch.int32, device=dev)
-    cs, cd, _, wb, order_s, order_d = _election_lanes(comp, src_d, dst_d,
-                                                      wb_d, sort=True)
+    cs, cd, _, wb = _election_lanes(comp, src_d, dst_d, wb_d)
+    order_s = torch.sort(cs, stable=True).indices
+    order_d = torch.sort(cd, stable=True).indices
     seg_s, val_s = cs[order_s], wb[order_s]
     seg_d, val_d = cd[order_d], wb[order_d]
     M = seg_s.numel()
@@ -2848,16 +2884,17 @@ def _ghs_registers(ptxas: str) -> dict:
     return out
 
 
-def _ghs_lockstep(torch, dev, arrays, topo, params, label) -> int:
+def _ghs_lockstep(torch, dev, shards, topo, params, label) -> int:
     """The kernel on the card and its plain version on the CPU from the
-    same state, an interval at a time until silence: every ShardState
-    array and the scalar vector equal after each interval (raises
-    otherwise).  Returns the intervals compared."""
+    same state (the host shards ``shards``, stacked), an interval at a
+    time until silence: every ShardState array of every shard and the
+    scalar vector equal after each interval (raises otherwise).  Returns
+    the intervals compared."""
     from repro_torch.core import ghs_state
     from repro_torch.kernels.ghs_superstep import ghs_superstep, ref
     cfg = ref.config(topo, params)
-    cpu = ghs_state.upload(arrays, "cpu")
-    card = ghs_state.upload(arrays, dev)
+    cpu = ghs_state.upload_stacked(shards, "cpu")
+    card = ghs_state.upload_stacked(shards, dev)
     n_steps = 1 if params.round_loop == "host" else cfg.check
     scal_c = torch.zeros(3, dtype=torch.int32)
     scal_g = scal_c.to(dev)
@@ -2879,20 +2916,24 @@ def _np_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
-def _ghs_first_interval(torch, dev, graph, params) -> dict:
-    """The first interval of ``graph``'s solve: the kernel on the card
-    (CUDA events, the host ahead; three fresh copies of the state) and
-    the plain version on the CPU from the same state, every array equal
-    after it; the bytes it must touch."""
+def _ghs_first_interval(torch, dev, graph, params, num_shards=1) -> dict:
+    """The first interval of ``graph``'s solve over ``num_shards`` shards:
+    the kernel on the card (CUDA events, the host ahead; three fresh
+    copies of the state) and the plain version on the CPU from the same
+    state, every array of every shard equal after it; the bytes it must
+    touch."""
     import numpy as np
     from repro_torch.core import ghs_state
     from repro_torch.kernels.ghs_superstep import ghs_superstep, ref
-    topo, shards = ghs_state.host_shards(graph, 1, params)
+    topo, shards = ghs_state.host_shards(graph, num_shards, params)
     cfg = ref.config(topo, params)
-    before = shards[0]
+    before = {f: np.stack([np.asarray(a[f]) for a in shards])
+              for f in shards[0]}
+    for f in ghs_state.WORD_FIELDS:
+        before[f] = before[f].view(np.uint32)
     times = []
     for _ in range(3):
-        card = ghs_state.upload(before, dev)
+        card = ghs_state.upload_stacked(shards, dev)
         scal = torch.zeros(3, dtype=torch.int32, device=dev)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -2903,7 +2944,7 @@ def _ghs_first_interval(torch, dev, graph, params) -> dict:
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
-    cpu = ghs_state.upload(before, "cpu")
+    cpu = ghs_state.upload_stacked(shards, "cpu")
     t0 = time.perf_counter()
     plain = ghs_superstep.interval(cpu, torch.zeros(3, dtype=torch.int32),
                                    cfg.check, cfg)
@@ -2913,20 +2954,24 @@ def _ghs_first_interval(torch, dev, graph, params) -> dict:
     if bad or out.tolist() != plain.tolist():
         raise AssertionError(f"ghs_superstep first interval: kernel != plain "
                              f"on {bad or 'scalars'}")
-    popped = int(want["n_processed"])
-    pushed = int(want["n_sent_local"]) + int(want["n_sent_remote"])
+    popped = int(want["n_processed"].sum())
+    remote = int(want["n_sent_remote"].sum())
+    pushed = int(want["n_sent_local"].sum()) + remote
     changed = sum(int((want[f] != before[f]).sum()) for f in (
         "sn", "ln", "fnw", "fne", "find_count", "in_branch", "best_edge",
         "best_w", "best_e", "test_edge", "se", "hist_act", "hist_sent"))
     # Each popped message read once and each pushed one written once (its
     # words and its position lane), one hash slot (three words) a popped
-    # message, and each state word that changed written once.
+    # message, each state word that changed written once, and with more
+    # than one shard each remote message read off its ring and written
+    # into an inbox once by the exchange.
     nbytes = 4 * ((topo.lanes + 1) * (popped + pushed) + 3 * popped
-                  + changed)
+                  + changed + (2 * topo.lanes * remote if num_shards > 1
+                               else 0))
     return dict(ms=statistics.median(times), times_ms=times,
                 plain_ms=plain_ms, supersteps=out.tolist()[0],
-                messages=popped, pushed=pushed, changed_words=changed,
-                nbytes=nbytes)
+                messages=popped, pushed=pushed, remote=remote,
+                changed_words=changed, nbytes=nbytes)
 
 
 def phase_ghs(torch, dev, record, ptxas: str) -> tuple[dict, int]:
@@ -2989,7 +3034,7 @@ def phase_ghs(torch, dev, record, ptxas: str) -> tuple[dict, int]:
             params = GHSParams(round_loop=loop, **knobs)
             topo, shards = ghs_state.host_shards(small, 1, params)
             compared[f"{loop}/{name}"] = _ghs_lockstep(
-                torch, dev, shards[0], topo, params, f"{loop}/{name}")
+                torch, dev, shards, topo, params, f"{loop}/{name}")
     _log(f"ghs_superstep rmat-{GHS_KERNEL_SCALE}: kernel = plain on every "
          f"ShardState array after each interval, bit for bit ({compared} "
          f"intervals)")
@@ -3053,14 +3098,196 @@ def phase_ghs(torch, dev, record, ptxas: str) -> tuple[dict, int]:
                replaces=replaces, launches=0, bit_exact=True, max_abs_err=0,
                ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None, lanes=first["messages"])
-    return row, launches
+    return row, launches, (big, oracle, res, st, wall)
+
+
+def phase_mesh_boruvka(torch, graph, oracle, forests, record) -> dict:
+    """Phase 5f(a): ``minimum_spanning_forest(method="boruvka",
+    mesh=Mesh(S))`` on phase 3's rmat-SCALE for S in MESH_SHARDS, both
+    round bodies, both collectives, the block and hashed partitioners,
+    ``use_pallas=True``, ``check_frequency=MESH_CHECK_FREQUENCY`` (at the
+    default 5 the census never shrinks enough for the compressed exchange
+    before the solve ends): each forest equal to the numpy oracle and to
+    phase 3's one-shard forest of the same body; the launches of each run
+    counted from 0 (K1 under ``xla``; K2 and K3 under ``pallas``); the
+    median wall of MESH_RUNS runs (one under ``hashed``, whose host layout
+    adds about a second a run), rounds, intervals, host syncs, comm bytes
+    and the collective of each interval.  Returns the launches of the S=4
+    block compressed runs, keyed by kernel."""
+    from repro_torch import kernels
+    from repro_torch.core import mst_api
+    from repro_torch.core.params import GHSParams
+    from repro_torch.sharding.mesh import Mesh
+    expect = {"xla": ("segmented_min2_scan",),
+              "pallas": ("masked_minplus_scan", "pointer_jump")}
+    out, launches = {}, {}
+    for S in MESH_SHARDS:
+        mesh = Mesh(S)
+        for rk, part, coll in itertools.product(
+                ("xla", "pallas"), ("block", "hashed"),
+                ("pmin", "compressed")):
+            params = GHSParams(round_kernel=rk, use_pallas=True,
+                               partitioner=part, collective=coll,
+                               check_frequency=MESH_CHECK_FREQUENCY)
+            walls = []
+            for _ in range(MESH_RUNS if part == "block" else 1):
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, st = mst_api.minimum_spanning_forest(
+                    graph, params=params, mesh=mesh)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                counts = dict(kernels.LAUNCHES)
+                label = f"S={S} {rk} {part} {coll}"
+                if not ((res.edge_mask == oracle.edge_mask).all()
+                        and res.num_components == oracle.num_components):
+                    raise AssertionError(f"mesh {label}: forest != oracle")
+                if not _same_forest(res, forests[rk]):
+                    raise AssertionError(f"mesh {label}: forest != the "
+                                         f"one-shard solve")
+                missing = [k for k in expect[rk] if counts[k] <= 0]
+                if missing:
+                    raise AssertionError(f"mesh {label}: {missing} not "
+                                         f"launched ({counts})")
+                if st.host_syncs != st.intervals + 1:
+                    raise AssertionError(f"mesh {label}: host syncs "
+                                         f"{st.host_syncs} != intervals "
+                                         f"{st.intervals} + 1")
+            modes = [c[0] for c in st.comm_history]
+            used = {k: counts[k] for k in
+                    ("segmented_min2_scan", "masked_minplus_scan",
+                     "pointer_jump") if counts[k]}
+            med = statistics.median(walls)
+            _log(f"mesh rmat-{SCALE} S={S} round_kernel={rk} partitioner="
+                 f"{part} collective={coll}: median wall {med:.4f} s "
+                 f"({[round(w, 4) for w in walls]}), rounds {st.rounds}, "
+                 f"intervals {st.intervals}, host_syncs {st.host_syncs}, "
+                 f"comm_bytes {st.comm_bytes}, intervals by collective "
+                 f"{ {m: modes.count(m) for m in sorted(set(modes))} }, "
+                 f"launches {used}; forest = oracle = one shard")
+            out[f"{S}/{rk}/{part}/{coll}"] = dict(
+                walls_s=walls, median_s=med, rounds=st.rounds,
+                intervals=st.intervals, host_syncs=st.host_syncs,
+                comm_bytes=st.comm_bytes, comm_history=list(st.comm_history),
+                launches=used)
+            if S == 4 and part == "block" and coll == "compressed":
+                launches.update(used)
+    record["mesh_boruvka"] = out
+    return launches
+
+
+def phase_mesh_ghs(torch, dev, record, big) -> dict:
+    """Phase 5f(b, c): ``method="ghs"`` over GHS_MESH_SHARDS shards of
+    phase 5e's rmat-GHS_BIG_SCALE under GHS_MESH_SETTINGS (the block,
+    hashed and balanced partitioners; without the relaxed Test queue, the
+    edge hash or message compression), each forest equal to Kruskal's,
+    the kernel launched once an interval (counted from 0 a solve):
+    supersteps, messages, remote messages and bytes, wall and ns a message
+    beside 5e's one-shard solve of the same graph; the S-block kernel against its plain version on
+    every array of every shard after every interval at rmat-
+    GHS_KERNEL_SCALE for S in GHS_MESH_KERNEL_SHARDS under both loops, and
+    on rmat-GHS_BIG_SCALE's first interval at GHS_MESH_SHARDS, timed
+    beside its bound.  Returns the kernels-line fields of the S-shard
+    interval."""
+    from repro_torch import kernels
+    from repro_torch.core import generators, ghs_state, kruskal_ref, mst_api
+    from repro_torch.core import runtime
+    from repro_torch.core.params import GHSParams
+    from repro_torch.kernels.ghs_superstep import ghs_superstep, ref
+    from repro_torch.sharding.mesh import Mesh
+    graph, _, one_res, one_st, one_wall = big
+    S = GHS_MESH_SHARDS
+    rec = dict(shards=S, solves={}, one_shard=dict(
+        wall_s=one_wall, supersteps=one_st.supersteps,
+        processed=one_st.processed, intervals=one_st.intervals))
+    t0 = time.perf_counter()
+    oracle = kruskal_ref.kruskal(graph)
+    rec["kruskal_s"] = time.perf_counter() - t0
+    if not _same_forest(one_res, oracle):
+        raise AssertionError("5e's one-shard GHS forest != Kruskal")
+    topo, _ = ghs_state.host_shards(graph, S, GHSParams())
+    cfg = ref.config(topo, GHSParams())
+    rec["grid_capacity"] = ghs_superstep.capacity(cfg, S, dev)
+    mesh_launches = None
+    for name, knobs in GHS_MESH_SETTINGS.items():
+        params = GHSParams(**knobs)
+        part = params.partitioner
+        t0 = time.perf_counter()
+        ghs_state.host_shards(
+            runtime.vertex_partitioned(graph, part, S), S, params)
+        init_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, st = mst_api.minimum_spanning_forest(graph, method="ghs",
+                                                  params=params,
+                                                  mesh=Mesh(S))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = kernels.LAUNCHES["ghs_superstep"]
+        if not _same_forest(res, oracle):
+            raise AssertionError(f"ghs S={S} {name}: forest != Kruskal")
+        if n != st.intervals + st.speculative_intervals or any(
+                v for k, v in kernels.LAUNCHES.items()
+                if k != "ghs_superstep"):
+            raise AssertionError(f"ghs S={S} {name}: launches "
+                                 f"{dict(kernels.LAUNCHES)} for "
+                                 f"{st.intervals} intervals")
+        if st.sent_remote <= 0:
+            raise AssertionError(f"ghs S={S} {name}: no remote message")
+        if mesh_launches is None:
+            mesh_launches = n
+        _log(f"ghs rmat-{GHS_BIG_SCALE} (m={graph.num_edges}) S={S} "
+             f"{name} {knobs}: {wall:.3f} s (host_shards {init_s:.3f} "
+             f"s), supersteps {st.supersteps}, intervals {st.intervals}, "
+             f"messages {st.processed} ({wall / st.processed * 1e9:.0f} ns "
+             f"each), sent_remote {st.sent_remote} ({st.bytes_remote} "
+             f"bytes), sent_local {st.sent_local}, launches {n}; one shard "
+             f"{one_wall:.3f} s, {one_st.supersteps} supersteps, "
+             f"{one_st.processed} messages; forest = Kruskal")
+        rec["solves"][name] = dict(
+            wall_s=wall, init_s=init_s, supersteps=st.supersteps,
+            intervals=st.intervals, processed=st.processed,
+            sent_remote=st.sent_remote, bytes_remote=st.bytes_remote,
+            sent_local=st.sent_local, launches=n,
+            ns_per_message=wall / st.processed * 1e9)
+
+    small = generators.rmat(GHS_KERNEL_SCALE, seed=SEED)
+    compared = {}
+    for shards in GHS_MESH_KERNEL_SHARDS:
+        for loop in ("device", "host"):
+            params = GHSParams(round_loop=loop)
+            topo, host = ghs_state.host_shards(small, shards, params)
+            compared[f"S={shards}/{loop}"] = _ghs_lockstep(
+                torch, dev, host, topo, params, f"S={shards}/{loop}")
+    _log(f"ghs_superstep rmat-{GHS_KERNEL_SCALE} over S shards: kernel = "
+         f"plain on every array of every shard after each interval "
+         f"({compared} intervals)")
+    rec["lockstep_intervals"] = compared
+
+    first = _ghs_first_interval(torch, dev, graph, GHSParams(), S)
+    bound_ms, bound_by = _bound_ms(first["nbytes"], 0)
+    _log(f"ghs_superstep S={S} first interval of rmat-{GHS_BIG_SCALE} "
+         f"({first['supersteps']} supersteps, {first['messages']} messages, "
+         f"{first['remote']} remote): {first['ms']:.3f} ms "
+         f"({first['times_ms']}), plain {first['plain_ms']:.1f} ms, bound "
+         f"{bound_ms:.4f} ms by {bound_by} ({first['nbytes']} bytes); "
+         f"kernel = plain on every array of every shard; grid capacity "
+         f"{rec['grid_capacity']} blocks")
+    rec["first"] = first
+    record["mesh_ghs"] = rec
+    return dict(mesh_shards=S, mesh_launches=mesh_launches,
+                mesh_ms=first["ms"], mesh_plain_ms=first["plain_ms"],
+                mesh_bound_ms=bound_ms, mesh_bound_by=bound_by)
 
 
 def probe_ghs_scales(scales) -> int:
     """``python3 chip_smoke.py --ghs-scales 16,18``: ``method="ghs"`` on
     rmat at each scale (degree 32, seed SEED), its wall time, supersteps
     and messages logged, the forest held against the numpy oracle; how
-    GHS_BIG_SCALE is chosen (the largest of 16-18 that ends within 60 s)."""
+    GHS_BIG_SCALE was chosen (17, the largest of 16-18 that ends within
+    60 s, until phase 5f's time took it to 16)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3152,7 +3379,6 @@ def main() -> int:
     record["filter_update_launches"] = dict(
         filter=phase_filter(torch, graph, oracle, forests, record),
         updates_label_k3=phase_updates(torch, graph, record))
-    del forests
     record["filter_update_phase_s"] = time.perf_counter() - t0
     _log(f"phase 5c (filter-Borůvka, incremental updates): "
          f"{record['filter_update_phase_s']:.1f} s; K3 launches "
@@ -3165,10 +3391,21 @@ def main() -> int:
     _log(f"phase 5d (the MST service): {record['service_phase_s']:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ghs_row, launches["ghs_superstep"] = phase_ghs(torch, dev, record,
-                                                   logs["ghs_superstep"])
+    ghs_row, launches["ghs_superstep"], big = phase_ghs(
+        torch, dev, record, logs["ghs_superstep"])
     record["ghs_phase_s"] = time.perf_counter() - t0
     _log(f"phase 5e (the GHS engine): {record['ghs_phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record["mesh_launches"] = phase_mesh_boruvka(torch, graph, oracle,
+                                                 forests, record)
+    del forests
+    torch.cuda.empty_cache()
+    ghs_row.update(phase_mesh_ghs(torch, dev, record, big))
+    del big
+    record["mesh_phase_s"] = time.perf_counter() - t0
+    _log(f"phase 5f (the mesh paths): {record['mesh_phase_s']:.1f} s; "
+         f"launches {record['mesh_launches']}")
     torch.cuda.empty_cache()
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -11,11 +11,22 @@ host reads that vector once per interval and then decides on termination
 and on compaction, a prefix-sum stream compaction of the surviving edges
 into a power-of-two bucket.
 
-Two round bodies (``params.round_kernel``): ``"xla"`` (:func:`_one_round`,
-per-edge election and winner recording) and ``"pallas"``
+Two round bodies (``params.round_kernel``): ``"xla"``
+(:func:`_one_round_sharded`, per-edge election and winner recording) and ``"pallas"``
 (:func:`_one_round_fused`, the masked min-plus election with fragment-scale
 recording and hooking).  With ``params.use_pallas`` they run the
 hand-written CUDA kernels of :mod:`repro_torch.kernels` on a CUDA device.
+
+Under a mesh (:class:`repro_torch.sharding.mesh.Mesh`, S shards on one
+device) the edges are ``(S, block)`` tensors, one row a shard, and the
+fragment labels are held once, as the reference replicates them.  Each
+round elects per shard in ONE call over all S rows (each shard's segments
+offset by ``s · n``, so one K1 or K2 launch), then reduces the ``(S, n)``
+elections across shards with ``pmin`` or the compressed delta exchange
+(``params.collective``, :mod:`repro_torch.sharding.collectives`); the
+pointer jump (K3) runs once on the replicated parents.  The host picks
+the collective an interval from the candidate census, as the reference
+does, and records it in ``stats.comm_history`` and ``comm_bytes``.
 
 The engine takes a host :class:`Graph` or a
 :class:`repro_torch.core.pipeline.DeviceEdges`; the latter is staged on the
@@ -63,6 +74,7 @@ from repro_torch.core.params import DEFAULT_PARAMS, GHSParams
 from repro_torch.core.partition import pow2ceil
 from repro_torch.kernels.segment_min import ops as segops
 from repro_torch.kernels.spmv_minplus import ops as spmv_ops
+from repro_torch.sharding import collectives
 
 INF_KEY = keys_lib.INF_KEY
 INF32 = keys_lib.INF32           # flipped int32 "no edge" lane (INT32_MAX)
@@ -75,7 +87,11 @@ class BoruvkaStats(runtime.EngineStats):
     rounds: int = 0
     compactions: int = 0
     edges_scanned: int = 0          # Σ active (padded) edge slots per round
-    active_history: tuple = ()      # active edges after each interval
+    active_history: tuple = ()      # active edges after each interval (the
+                                    # device loop: the largest shard's)
+    comm_history: tuple = ()        # device loop: one (mode, cand_cap,
+                                    # rounds, bytes) a consumed interval;
+                                    # mode "pmin" or "compressed"
 
 
 def _take(labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -85,14 +101,37 @@ def _take(labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return labels[idx.clamp(max=labels.shape[0] - 1)]
 
 
-def _one_round(comp, mask, src, dst, key, slot, *, use_pallas: bool,
-               lanes: Optional[int] = None):
-    """One Borůvka round: fused MOE election, winner recording, merging.
+def _make_pmin(num_shards: int, collective: str, cand_cap: Optional[int]):
+    """``pmin(x, default)`` of the round bodies over ``(S, n)`` per-shard
+    values, returning the replicated ``(n,)``: the one row with one shard,
+    the dense min for ``collective="pmin"`` (or no cap), else the
+    compressed delta exchange with ``cand_cap``.  ``default`` is what a
+    shard holds where its edges improved nothing."""
+    if num_shards == 1:
+        return lambda x, default=None: x[0]
+    if collective != "compressed" or cand_cap is None:
+        return lambda x, default=None: collectives.pmin(x)
 
-    ``mask`` is the per-slot tree bitmap with one extra slot at the end.
-    With ``lanes`` the state is a flattened bucket of that many graphs
-    (labels and slots offset per lane, see :func:`_run_interval_batch`):
-    the election is still one call, and ``done`` comes back per lane.
+    def pmin(x, default):
+        return collectives.pmin_compressed(x, default=default, cap=cand_cap,
+                                           num_shards=num_shards)
+    return pmin
+
+
+def _shard_offsets(num_shards: int, n: int, device) -> torch.Tensor:
+    """(S, 1) int32 offsets ``s · n`` that give each shard its own run of
+    ``n`` segments in one flattened election."""
+    return (torch.arange(num_shards, dtype=torch.int32, device=device)
+            * n)[:, None]
+
+
+def _one_round(comp, mask, src, dst, key, slot, *, use_pallas: bool,
+               lanes: int):
+    """One Borůvka round of a flattened bucket of ``lanes`` graphs (labels
+    and slots offset per lane, see :func:`_run_interval_batch`): fused MOE
+    election, winner recording, merging.  ``mask`` is the per-slot tree
+    bitmap with one extra slot at the end.  The election is one call for
+    every lane, and ``done`` comes back per lane.
     """
     n = comp.shape[0]
     cap = mask.shape[0] - 1
@@ -106,31 +145,70 @@ def _one_round(comp, mask, src, dst, key, slot, *, use_pallas: bool,
     mask.index_fill_(0, torch.where(winners, slot.to(torch.int64), cap), True)
     parent = union_find.hook_min(n, torch.maximum(cs, cd),
                                  torch.minimum(cs, cd), winners)
-    if lanes is None:
-        parent = union_find.pointer_double(parent)
-        return parent[comp], mask, (best == INF_KEY).all()
     # A lane's forest spans n // lanes labels: its doubling steps suffice.
     parent = union_find.pointer_double(
         parent, union_find.doubling_steps(n // lanes))
     return parent[comp], mask, (best == INF_KEY).view(lanes, -1).all(1)
 
 
-def _one_round_fused(comp, mask, src, dst, key, csrc, cdst, *,
+def _one_round_sharded(comp, mask, src, dst, key, slot, *, pmin,
+                       use_pallas: bool):
+    """One round of the single-graph engine over S shards: fused MOE
+    election, winner recording, merging.
+
+    ``comp`` (n,) is replicated; the edges are ``(S, B)`` and ``slot``
+    counts within each shard's block of the flat bitmap ``mask`` (S
+    blocks, one extra slot at the end).  The election is one call over all
+    rows, shard s's segments offset by ``s · n``; its ``(S, n)`` result
+    and the per-shard hook parents each go through ``pmin``.
+    """
+    S = src.shape[0]
+    n = comp.shape[0]
+    block = (mask.shape[0] - 1) // S
+    off = _shard_offsets(S, n, comp.device)
+    cs = _take(comp, src)
+    cd = _take(comp, dst)
+    alive = (cs != cd) & (key != INF_KEY)
+    k = torch.where(alive, key, INF_KEY)
+    best = segops.segment_min64(torch.cat([k, k], 1).view(-1),
+                                torch.cat([cs + off, cd + off], 1).view(-1),
+                                num_segments=S * n, use_pallas=use_pallas)
+    best = pmin(best.view(S, n), INF_KEY)
+    winners = alive & ((best[cs] == k) | (best[cd] == k))
+    base = torch.arange(S, device=comp.device)[:, None] * block
+    mask.index_fill_(0, torch.where(winners, slot.to(torch.int64) + base,
+                                    S * block).view(-1), True)
+    parent = union_find.hook_min(n, torch.maximum(cs, cd),
+                                 torch.minimum(cs, cd), winners)
+    parent = pmin(parent, torch.arange(n, dtype=torch.int32,
+                                       device=comp.device))
+    parent = union_find.pointer_double(parent)
+    return parent[comp], mask, (best == INF_KEY).all()
+
+
+def _one_round_fused(comp, mask, src, dst, key, csrc, cdst, *, pmin,
                      lowering: str, sort_bits):
     """One Borůvka round as the fused masked min-plus election.
 
-    The elected ``best[f]`` names the winning edge (its id lane is the
-    canonical edge id), so winner recording writes a canonical-id bitmap
-    (one extra slot at the end) at fragment scale, and the merge partner
-    comes from the canonical endpoints ``csrc``/``cdst``.  Shortcut and
-    relabel fuse into one call.
+    The edges are ``(S, B)``; the election is one call over all rows
+    (shard s's segments offset by ``s · n``; ``sort_bits`` fits ``S · n``
+    segments), then one ``pmin`` of the ``(S, n)`` result.  The elected
+    ``best[f]`` names the winning edge (its id lane is the canonical edge
+    id), so winner recording writes a replicated canonical-id bitmap (one
+    extra slot at the end) at fragment scale, and the merge partner comes
+    from the canonical endpoints ``csrc``/``cdst``.  Shortcut and relabel
+    fuse into one call on the replicated labels.
     """
+    S = src.shape[0]
     n = comp.shape[0]
     m = mask.shape[0] - 1
+    off = _shard_offsets(S, n, comp.device)
     cs = _take(comp, src)
     cd = _take(comp, dst)
-    best = spmv_ops.elect(cs, cd, key, num_segments=n, lowering=lowering,
-                          sort_bits=sort_bits)
+    best = spmv_ops.elect((cs + off).view(-1), (cd + off).view(-1),
+                          key.reshape(-1), num_segments=S * n,
+                          lowering=lowering, sort_bits=sort_bits)
+    best = pmin(best.view(S, n), INF_KEY)
     elected = best != INF_KEY
     eid = keys_lib.unpack_edge_id(best)      # 0xFFFFFFFF when not elected
     mask.index_fill_(0, torch.where(elected, eid, m), True)
@@ -153,7 +231,8 @@ def _run_interval(comp, mask, edges, rounds: int, round_fn):
     edge; here every round is queued, and a round started after ``done``
     is a fixed point (no live edge, identity parent) that is not counted.
     Returns the new state and a :class:`runtime.Readback` of
-    ``(done, rounds run, active edges, touched fragments)``.
+    ``(done, rounds run, active edges, touched fragments)``, the last two
+    of the shard that has most (the reference's ``pmax`` censuses).
     """
     src, dst, key = edges[0], edges[1], edges[2]
     dev = comp.device
@@ -164,53 +243,39 @@ def _run_interval(comp, mask, edges, rounds: int, round_fn):
         r = r + (~done).to(torch.int64)
         done = done | done_i
     # Active-edge census (the compaction bucket) and the distinct
-    # fragments touched by active edges (the reference's candidate census).
-    n = comp.shape[0]
+    # fragments touched by active edges (the candidate census that caps
+    # the compressed exchange), each shard's in its own run of n.
+    S, n = src.shape[0], comp.shape[0]
+    off = _shard_offsets(S, n, dev).to(torch.int64)
     cs = _take(comp, src)
     cd = _take(comp, dst)
     active = (cs != cd) & (key != INF_KEY)
-    touched = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    touched.index_fill_(0, torch.where(active, cs.to(torch.int64), n), True)
-    touched.index_fill_(0, torch.where(active, cd.to(torch.int64), n), True)
-    scalars = torch.stack([done.to(torch.int64), r, active.sum(),
-                           touched[:n].sum()])
+    touched = torch.zeros(S * n + 1, dtype=torch.bool, device=dev)
+    for c in (cs, cd):
+        touched.index_fill_(0, torch.where(active, c + off, S * n).view(-1),
+                            True)
+    scalars = torch.stack([done.to(torch.int64), r, active.sum(1).max(),
+                           touched[:S * n].view(S, n).sum(1).max()])
     return comp, mask, runtime.Readback(scalars)
 
 
-def _compact(comp, src, dst, key, slot, *, cap: int):
-    """Prefix-sum stream compaction of the edge block to ``cap`` slots.
-
-    Dead edges (endpoints in one fragment) are dropped, survivors slide to
-    the front carrying their load-time bitmap ``slot``, and the tail refills
-    with the padding sentinels.  Dropped lanes write the extra slot ``cap``.
-    """
-    keep = (_take(comp, src) != _take(comp, dst)) & (key != INF_KEY)
-    pos = torch.cumsum(keep.to(torch.int64), 0) - 1
-    idx = torch.where(keep, pos, cap)
-
-    def scatter(fill, vals):
-        out = torch.full((cap + 1,), fill, dtype=vals.dtype, device=vals.device)
-        out[idx] = vals
-        return out[:cap]
-
-    return (scatter(int(PAD_VERTEX), src), scatter(int(PAD_VERTEX), dst),
-            scatter(INF_KEY, key), scatter(_PAD_SLOT, slot))
-
-
 def _device_engine(source, params: GHSParams, device: torch.device,
-                   max_rounds: Optional[int]) -> tuple[ForestResult, BoruvkaStats]:
+                   max_rounds: Optional[int],
+                   num_shards: int = 1) -> tuple[ForestResult, BoruvkaStats]:
+    S = num_shards
     if isinstance(source, Graph):
         # Host weights may be anything; the pipeline's lie in (0, 1) by
         # construction, so only a host Graph needs the sentinel check.
         if np.any(source.weight.view(np.uint32) == REF_INF32):
             raise ValueError("weights collide with the INF sentinel")
-    bundle = runtime.prepare_edges(source, params.partitioner, chunk=8,
-                                   device=device)
+    bundle = runtime.prepare_edges(source, params.partitioner, chunk=8 * S,
+                                   device=device, num_shards=S)
     n, m = bundle.num_vertices, bundle.num_edges
     layout = bundle.layout
     comp = torch.arange(n, dtype=torch.int32, device=device)
 
     fused = runtime.resolve_round_kernel(params.round_kernel) == "pallas"
+    collective = runtime.resolve_collective(params.collective)
     if fused:
         if not m:
             csrc = cdst = torch.zeros(1, dtype=torch.int32, device=device)
@@ -231,17 +296,29 @@ def _device_engine(source, params: GHSParams, device: torch.device,
         lowering = ("pallas" if params.use_pallas
                     else "sort" if sort_bits is not None else "scatter")
         sb = sort_bits if lowering == "sort" else None
+        if sb is not None and S > 1:
+            # One election over S · n segments: the sort word needs their
+            # bits; where it has none, the scatter election (the same
+            # exact min) runs instead.
+            sb = spmv_ops.sort_gate(S * n, m)
+            lowering = "sort" if sb is not None else "scatter"
 
-        def round_fn(comp, mask, src, dst, key, slot):
-            return _one_round_fused(comp, mask, src, dst, key, csrc, cdst,
-                                    lowering=lowering, sort_bits=sb)
+        def make_round(pmin):
+            def round_fn(comp, mask, src, dst, key, slot):
+                return _one_round_fused(comp, mask, src, dst, key, csrc,
+                                        cdst, pmin=pmin, lowering=lowering,
+                                        sort_bits=sb)
+            return round_fn
     else:
         mask = torch.zeros(layout.num_slots + 1, dtype=torch.bool,
                            device=device)
 
-        def round_fn(comp, mask, src, dst, key, slot):
-            return _one_round(comp, mask, src, dst, key, slot,
-                              use_pallas=params.use_pallas)
+        def make_round(pmin):
+            def round_fn(comp, mask, src, dst, key, slot):
+                return _one_round_sharded(comp, mask, src, dst, key, slot,
+                                          pmin=pmin,
+                                          use_pallas=params.use_pallas)
+            return round_fn
 
     overlap = (runtime.resolve_interval_pipeline(
         params.interval_pipeline) == 1)
@@ -250,38 +327,70 @@ def _device_engine(source, params: GHSParams, device: torch.device,
     stats = BoruvkaStats()
     stats.edge_staging = bundle.staging
     history = []
-    box = dict(cur_block=layout.block, dispatched=0, inflight=[])
+    comm_hist = []
+    # Value lanes of a round's reductions, for the wire model: the xla
+    # body exchanges best (8 bytes) and the hook parents (4); the fused
+    # body has one collective, best only.
+    value_bytes = (8,) if fused else (8, 4)
+    # cand_bound: a bound on any shard's candidates a round for the next
+    # dispatch, from the last interval's touched-fragment census (which
+    # never grows, so it stays valid one interval late under overlap);
+    # before any census, each local edge touches at most two fragments.
+    box = dict(cur_block=layout.block, dispatched=0, inflight=[],
+               cand_bound=min(n, 2 * layout.block))
+
+    def pick():
+        """The next interval's collective and wire model: the compressed
+        exchange with the census-derived cap where its bytes beat the
+        dense pmin's, else the dense pmin (equal results either way)."""
+        full_b = sum(collectives.dense_bytes(n, S, vb) for vb in value_bytes)
+        if S > 1 and collective == "compressed":
+            cand_cap = max(pow2ceil(box["cand_bound"]), 8)
+            comp_b = sum(collectives.compressed_bytes(cand_cap, S, vb)
+                         for vb in value_bytes)
+            if comp_b < full_b:
+                return "compressed", cand_cap, comp_b
+        return "pmin", 0, full_b
 
     def dispatch(s):
         comp, mask, edges = s
         # Clamp by the DISPATCHED total: under overlap a dispatch happens
         # before the previous interval's readback is consumed.
         this_rounds = max(min(interval, cap_rounds - box["dispatched"]), 0)
+        mode, cand_cap, bytes_per_round = pick()
+        round_fn = make_round(_make_pmin(S, mode, cand_cap or None))
         comp, mask, readback = _run_interval(comp, mask, edges, this_rounds,
                                              round_fn)
         box["dispatched"] += this_rounds
-        box["inflight"].append(box["cur_block"])
+        box["inflight"].append((mode, cand_cap, box["cur_block"],
+                                bytes_per_round))
         return (comp, mask, edges), readback
 
     def finish(s, vals):
-        done_v, r, n_act, _ = vals
-        blk = box["inflight"].pop(0)
+        done_v, r, n_act, n_cand = vals
+        mode, cand_cap, blk, bytes_per_round = box["inflight"].pop(0)
         stats.rounds += r
-        stats.edges_scanned += r * blk
+        stats.edges_scanned += r * blk * S
+        stats.comm_bytes += r * bytes_per_round
+        comm_hist.append((mode, cand_cap, r, r * bytes_per_round))
         history.append(n_act)
+        box["cand_bound"] = max(min(n, n_cand), 1)
         if done_v:
             return s, True
         if params.compaction == "pow2":
             new_block = max(pow2ceil(n_act), 8)
             if new_block < box["cur_block"]:
                 comp, mask, edges = s
-                edges = _compact(comp, *edges, cap=new_block)
+                edges = _compact_lanes(comp.expand(S, n), *edges,
+                                       cap=new_block)
                 s = (comp, mask, edges)
                 box["cur_block"] = new_block
                 stats.compactions += 1
         return s, False
 
-    edges = (bundle.src, bundle.dst, bundle.key, bundle.slot)
+    # One row a shard: row s is shard s's block of the layout.
+    edges = tuple(t.view(S, layout.block) for t in (
+        bundle.src, bundle.dst, bundle.key, bundle.slot))
     comp, mask, _ = runtime.interval_loop(
         (comp, mask, edges), dispatch, finish, stats=stats,
         max_intervals=cap_rounds, fail_msg="Borůvka engine failed to converge",
@@ -300,6 +409,7 @@ def _device_engine(source, params: GHSParams, device: torch.device,
     res = runtime.forest_from_mask(bundle.graph(), tree, num_components=ncomp)
     res.check_consistent(n)
     stats.active_history = tuple(history)
+    stats.comm_history = tuple(comm_hist)
     return res, stats
 
 
@@ -332,6 +442,8 @@ class BatchStats(BoruvkaStats):
         self.active_history += st.active_history
         self.overlapped_syncs += st.overlapped_syncs
         self.speculative_intervals += st.speculative_intervals
+        self.comm_bytes += st.comm_bytes
+        self.comm_history += st.comm_history
 
 
 def _lane_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -850,62 +962,71 @@ def _host_lanes(graph: Graph):
             np.arange(graph.num_edges, dtype=np.uint32))
 
 
-def _upload(arrs, chunk: int, device: torch.device) -> list:
+def _upload(arrs, chunk: int, device: torch.device,
+            num_shards: int = 1) -> list:
     """The host loop's upload: ``(src, dst, wbits, eid)`` (numpy; the last
     two uint32) padded to a power-of-two multiple of ``chunk``, on
-    ``device``, with the uint32 lanes as flipped int32."""
+    ``device``, with the uint32 lanes as flipped int32, cut into
+    ``num_shards`` equal rows."""
     s, d, w, e = _pad_pow2(arrs, chunk,
                            [PAD_VERTEX, PAD_VERTEX, REF_INF32, REF_INF32])
-    return [torch.from_numpy(a).to(device) for a in
+    return [torch.from_numpy(a).to(device).view(num_shards, -1) for a in
             (s, d, keys_lib.from_reference32(w), keys_lib.from_reference32(e))]
 
 
-def _election_lanes(comp, src, dst, wbits, *, sort: bool):
+def _election_lanes(comp, src, dst, wbits):
     """The lanes a round elects over: endpoint labels ``cs``/``cd``, the
-    ``alive`` mask, the weight lanes ``wb`` (INF where dead) and, with
-    ``sort``, one stable sorting permutation per endpoint array (reused by
-    both election phases; else None)."""
+    ``alive`` mask and the weight lanes ``wb`` (INF where dead)."""
     cs = _take(comp, src)
     cd = _take(comp, dst)
     alive = (cs != cd) & (wbits != INF32)
     wb = torch.where(alive, wbits, INF32)
-    order_s = torch.sort(cs, stable=True).indices if sort else None
-    order_d = torch.sort(cd, stable=True).indices if sort else None
-    return cs, cd, alive, wb, order_s, order_d
+    return cs, cd, alive, wb
 
 
 def _round_body(comp, src, dst, wbits, eid, *, use_pallas: bool = False):
     """One two-phase round: elect MOE per fragment, hook, compress, relabel.
 
-    ``wbits``/``eid`` are flipped int32 lanes; returns the new labels, the
-    per-edge winner bitmap and the device ``done`` flag.  Per-segment mins
-    are scatter-mins, or with ``use_pallas`` a sort and the 32-bit scan
-    kernel.
+    The edge lanes are ``(S, B)``, one row a shard; ``wbits``/``eid`` are
+    flipped int32 lanes.  Each per-segment min runs once over all rows
+    (shard s's segments offset by ``s · n``) and its ``(S, n)`` result is
+    reduced across shards by a dense ``pmin``, as are the hook parents.
+    Returns the new labels, the per-edge winner bitmap and the device
+    ``done`` flag.  Per-segment mins are scatter-mins, or with
+    ``use_pallas`` a sort and the 32-bit scan kernel.
     """
-    n = comp.shape[0]
+    S, n = src.shape[0], comp.shape[0]
+    pmin = _make_pmin(S, "pmin", None)
+    off = _shard_offsets(S, n, comp.device)
 
     def segmin(seg, val, order):
-        return segops.segment_min(val, seg, num_segments=n,
-                                  use_pallas=use_pallas, order=order)
+        return pmin(segops.segment_min(
+            val.reshape(-1), seg, num_segments=S * n, use_pallas=use_pallas,
+            order=order).view(S, n))
 
-    cs, cd, alive, wb, order_s, order_d = _election_lanes(
-        comp, src, dst, wbits, sort=use_pallas)
+    cs, cd, alive, wb = _election_lanes(comp, src, dst, wbits)
+    # One stable sorting permutation per endpoint array, reused by both
+    # election phases.
+    seg_s = (cs + off).view(-1)
+    seg_d = (cd + off).view(-1)
+    order_s = torch.sort(seg_s, stable=True).indices if use_pallas else None
+    order_d = torch.sort(seg_d, stable=True).indices if use_pallas else None
 
     # Phase 1: best weight per fragment.
-    bw = torch.minimum(segmin(cs, wb, order_s), segmin(cd, wb, order_d))
+    bw = torch.minimum(segmin(seg_s, wb, order_s), segmin(seg_d, wb, order_d))
 
     # Phase 2: tie-break by unique edge id among weight-matching edges.
     cand_s = torch.where(alive & (wb == bw[cs]), eid, INF32)
     cand_d = torch.where(alive & (wb == bw[cd]), eid, INF32)
-    be = torch.minimum(segmin(cs, cand_s, order_s),
-                       segmin(cd, cand_d, order_d))
+    be = torch.minimum(segmin(seg_s, cand_s, order_s),
+                       segmin(seg_d, cand_d, order_d))
 
     # Winners: the elected MOE edges (each fragment elects exactly one).
     winners = alive & ((be[cs] == eid) | (be[cd] == eid))
 
     # Merge: min-hooking + pointer doubling.
-    parent = union_find.hook_min(n, torch.maximum(cs, cd),
-                                 torch.minimum(cs, cd), winners)
+    parent = pmin(union_find.hook_min(n, torch.maximum(cs, cd),
+                                      torch.minimum(cs, cd), winners))
     parent = union_find.pointer_double(parent)
     new_comp = parent[comp]
 
@@ -914,11 +1035,13 @@ def _round_body(comp, src, dst, wbits, eid, *, use_pallas: bool = False):
 
 
 def _host_engine(graph: Graph, params: GHSParams, device: torch.device,
-                 max_rounds: Optional[int]) -> tuple[ForestResult, BoruvkaStats]:
+                 max_rounds: Optional[int],
+                 num_shards: int = 1) -> tuple[ForestResult, BoruvkaStats]:
     n, m = graph.num_vertices, graph.num_edges
     if n == 0:
         raise ValueError("the host loop needs a graph with vertices")
-    chunk = 8
+    S = num_shards
+    chunk = 8 * S
 
     src, dst, wbits, eid = _host_lanes(graph)
     if np.any(wbits == REF_INF32):
@@ -926,9 +1049,15 @@ def _host_engine(graph: Graph, params: GHSParams, device: torch.device,
 
     # The legacy loop tracks edges by canonical id end to end, so a
     # partitioner only sets the upload order: its edges of shard 0, then of
-    # shard 1, ...  On one device every partitioner puts every edge in
-    # shard 0, so the order is canonical.
-    partition_lib.get_partitioner(params.partitioner)
+    # shard 1, ...; the padded upload is then cut into S equal rows, and a
+    # compaction re-uploads the survivors the same way.
+    part = partition_lib.get_partitioner(params.partitioner)
+    if part.name != "block" and m:
+        shard = part.edge_shard(graph, S)
+        order = np.concatenate([np.flatnonzero(shard == s)
+                                for s in range(S)]).astype(np.int64)
+    else:
+        order = np.arange(m, dtype=np.int64)
 
     round_fn = functools.partial(_round_body, use_pallas=params.use_pallas)
     stats = BoruvkaStats()
@@ -936,16 +1065,17 @@ def _host_engine(graph: Graph, params: GHSParams, device: torch.device,
     def put_edges(arrs):
         stats.host_syncs += 1          # host→device re-upload
         stats.extra_syncs += 1
-        return _upload(arrs, chunk, device)
+        return _upload(arrs, chunk, device, S)
 
     comp_dev = torch.arange(n, dtype=torch.int32, device=device)
-    src_d, dst_d, wb_d, eid_d = put_edges([src, dst, wbits, eid])
+    src_d, dst_d, wb_d, eid_d = put_edges(
+        [src[order], dst[order], wbits[order], eid[order]])
 
     mask = np.zeros(m, dtype=bool)
     history = []
     cap = max_rounds or (n + 2)
     # Host mirror of the active edge set (for compaction + winner mapping).
-    box = dict(active=np.arange(m, dtype=np.int64))
+    box = dict(active=order.copy())
 
     def dispatch(s):
         comp_dev, src_d, dst_d, wb_d, eid_d, _ = s
@@ -960,7 +1090,7 @@ def _host_engine(graph: Graph, params: GHSParams, device: torch.device,
         comp_dev, src_d, dst_d, wb_d, eid_d, winners = s
         rnd = stats.rounds
         stats.rounds += 1
-        stats.edges_scanned += int(src_d.shape[0])
+        stats.edges_scanned += int(src_d.numel())
         history.append(len(box["active"]))
         if done_v:
             return s, True
@@ -1007,15 +1137,19 @@ def minimum_spanning_forest(
     mesh=None,
     max_rounds: Optional[int] = None,
 ) -> tuple[ForestResult, BoruvkaStats]:
-    """Run the Borůvka engine on one device; returns the forest + stats.
+    """Run the Borůvka engine; returns the forest + stats.
 
     ``device=None`` runs on CUDA and raises when no card is present;
-    ``device="cpu"`` runs the kernels' plain PyTorch versions.
-    ``params.round_loop`` picks the device-resident loop (the default) or
-    the legacy host loop; both run on one device.
+    ``device="cpu"`` runs the kernels' plain PyTorch versions.  ``mesh``
+    (a :class:`repro_torch.sharding.mesh.Mesh`) spreads the edges over its
+    shards on its device, under ``params.partitioner`` and
+    ``params.collective``.  ``params.round_loop`` picks the
+    device-resident loop (the default) or the legacy host loop.  Every
+    combination gives the same forest, and the JAX package's stats.
     """
-    dev = runtime.resolve_device(device)
-    runtime.require_one_device(mesh, params.collective)
+    S, dev = runtime.resolve_mesh(mesh, device)
+    runtime.resolve_collective(params.collective)
     if runtime.resolve_round_loop(params.round_loop) == "host":
-        return _host_engine(runtime.as_graph(graph), params, dev, max_rounds)
-    return _device_engine(graph, params, dev, max_rounds)
+        return _host_engine(runtime.as_graph(graph), params, dev, max_rounds,
+                            S)
+    return _device_engine(graph, params, dev, max_rounds, S)

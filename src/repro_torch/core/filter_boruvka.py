@@ -32,7 +32,10 @@ solve sees every edge.
 
 The host glue (sampling, subsets, thresholds) is numpy, as in the
 reference; the level labels and the probe run on the engine's device, and
-the keep mask comes back in one read.  The label loop reads its flag on
+the keep mask comes back in one read.  Under a mesh the sub-solves run
+over its shards, and the tree edges of the label loop are cut into one
+power-of-two block a shard, whose hooks meet in a ``pmin`` (or the
+compressed exchange where its wire model beats the dense one).  The label loop reads its flag on
 the host (``ops.connected_labels``): each read counts in ``host_syncs``
 and ``extra_syncs``, and in ``FilterStats.label_syncs``.
 """
@@ -45,13 +48,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import boruvka_dist
+from repro_torch.core import keys as keys_lib
 from repro_torch.core import partition as partition_lib
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import runtime
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import PAD_VERTEX, Graph
 from repro_torch.core.kruskal_ref import ForestResult
 from repro_torch.core.params import DEFAULT_PARAMS, GHSParams
 from repro_torch.kernels.spmv_minplus import ops as minplus_ops
+from repro_torch.sharding import collectives
 
 MAX_PASSES = 2          # the first pass and the single recursion
 
@@ -83,7 +88,8 @@ def _thresholds(tree_keys: np.ndarray, num_levels: int) -> np.ndarray:
 
 
 def _level_labels(t_src, t_dst, t_key, thresholds, n: int, use_pallas: bool,
-                  stats) -> torch.Tensor:
+                  stats, collective: str = "pmin",
+                  cand_cap: Optional[int] = None) -> torch.Tensor:
     """(K, n) labels: level j's components over the tree edges with key ≤
     ``thresholds[j]``.  The levels are nested, so level j warm-starts from
     level j-1's labels and only newly active edges pay iterations."""
@@ -91,9 +97,36 @@ def _level_labels(t_src, t_dst, t_key, thresholds, n: int, use_pallas: bool,
     for j in range(thresholds.shape[0]):
         comp = minplus_ops.connected_labels(
             t_src, t_dst, t_key <= thresholds[j], num_vertices=n, init=comp,
-            use_pallas=use_pallas, stats=stats)
+            use_pallas=use_pallas, stats=stats, collective=collective,
+            cand_cap=cand_cap)
         rows.append(comp)
     return torch.stack(rows)
+
+
+def shard_tree(t_src, t_dst, t_key, n: int, num_shards: int,
+               collective: str):
+    """The label loop's tree edges under a mesh, as the reference lays
+    them out: one power-of-two block a shard (``PAD_VERTEX`` / ``INF_KEY``
+    padding, never active), numpy ``(S, block)`` arrays; and the
+    compressed exchange's cap where ``collective="compressed"`` and its
+    wire model beats the dense ``pmin`` (else None).  Each local tree edge
+    hooks at most one entry an iteration, so the block bounds a shard's
+    candidates."""
+    S = num_shards
+    block = partition_lib.pow2ceil(max(-(-max(t_src.size, 8) // S), 1))
+
+    def pad(a, fill):
+        return np.concatenate([a, np.full(block * S - a.size, fill,
+                                          a.dtype)]).reshape(S, block)
+
+    cand_cap = None
+    if S > 1 and collective == "compressed":
+        cap = max(partition_lib.pow2ceil(min(n, 2 * block)), 8)
+        if (collectives.compressed_bytes(cap, S, 4)
+                < collectives.dense_bytes(n, S, 4)):
+            cand_cap = cap
+    return (pad(t_src, PAD_VERTEX), pad(t_dst, PAD_VERTEX),
+            pad(t_key, keys_lib.INF_KEY), cand_cap)
 
 
 def _below(labels, thresholds, src, dst, key, n: int):
@@ -116,7 +149,7 @@ def _upload(device: torch.device):
 
 def _run_filter(g: Graph, cand: np.ndarray, tree_pos: np.ndarray,
                 smask: np.ndarray, params: GHSParams, device: torch.device,
-                stats: FilterStats) -> np.ndarray:
+                stats: FilterStats, num_shards: int = 1) -> np.ndarray:
     """Keep mask over ``cand`` from the quantized cycle rule; the labels
     and the probe on ``device``, the mask fetched in one read."""
     put = _upload(device)
@@ -127,10 +160,17 @@ def _run_filter(g: Graph, cand: np.ndarray, tree_pos: np.ndarray,
     tmask[tree_pos] = True
 
     thresholds = put(_thresholds(c_key[tree_pos], int(params.filter_levels)))
+    t_src, t_dst, t_key = c_src[tree_pos], c_dst[tree_pos], c_key[tree_pos]
+    collective, cand_cap = "pmin", None
+    if num_shards > 1:
+        t_src, t_dst, t_key, cand_cap = shard_tree(
+            t_src, t_dst, t_key, n, num_shards,
+            runtime.resolve_collective(params.collective))
+        collective = "compressed" if cand_cap is not None else "pmin"
     before = stats.host_syncs
-    labels = _level_labels(put(c_src[tree_pos]), put(c_dst[tree_pos]),
-                           put(c_key[tree_pos]), thresholds, n,
-                           bool(params.use_pallas), stats)
+    labels = _level_labels(put(t_src), put(t_dst), put(t_key), thresholds, n,
+                           bool(params.use_pallas), stats, collective,
+                           cand_cap)
     stats.label_syncs += stats.host_syncs - before
     below, _, _ = _below(labels, thresholds, put(c_src), put(c_dst),
                          put(c_key), n)
@@ -152,12 +192,14 @@ def minimum_spanning_forest(
     mirror).  ``device=None`` runs on the CUDA card and raises when there
     is none.  The forest equals ``method="boruvka"``'s (and the Kruskal
     oracle's) for every ``filter_sample_rate`` and ``filter_levels``.
+    ``mesh`` (a :class:`repro_torch.sharding.mesh.Mesh`) runs the
+    sub-solves and the label loop over its shards on its device.
     """
     if not 1 <= int(params.filter_levels) <= 64:
         raise ValueError(
             f"filter_levels must be in [1, 64], got {params.filter_levels}")
-    dev = runtime.resolve_device(device)
-    runtime.require_one_device(mesh, params.collective)
+    S, dev = runtime.resolve_mesh(mesh, device)
+    runtime.resolve_collective(params.collective)
     g = runtime.as_graph(graph)
     n, m = g.num_vertices, g.num_edges
     rate = float(params.filter_sample_rate)
@@ -184,12 +226,14 @@ def minimum_spanning_forest(
             sample_g = Graph(num_vertices=n, src=g.src[pick],
                              dst=g.dst[pick], weight=g.weight[pick])
             f_s, st = boruvka_dist.minimum_spanning_forest(
-                sample_g, params=params, device=dev, max_rounds=max_rounds)
+                sample_g, params=params, device=dev, mesh=mesh,
+                max_rounds=max_rounds)
             stats.merge(st)
             tree_pos = s_pos[f_s.edge_mask]
 
         if tree_pos.size:
-            keep = _run_filter(g, cand, tree_pos, smask, params, dev, stats)
+            keep = _run_filter(g, cand, tree_pos, smask, params, dev, stats,
+                               S)
             stats.host_syncs += 1      # the keep-mask fetch
             stats.extra_syncs += 1
         else:
@@ -208,7 +252,7 @@ def minimum_spanning_forest(
     live[cand] = True
     sub, index = partition_lib.subgraph_by_mask(g, live)
     res, st = boruvka_dist.minimum_spanning_forest(
-        sub, params=params, device=dev, max_rounds=max_rounds)
+        sub, params=params, device=dev, mesh=mesh, max_rounds=max_rounds)
     stats.merge(st)
 
     forest = runtime.forest_from_mask(

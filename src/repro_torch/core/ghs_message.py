@@ -11,13 +11,18 @@ handlers (1)-(11)) under the paper's implementation scheme (§3.2):
         check_finish();                -> silence detection (C5)
     }
 
-One shard holds every vertex (the multi-GPU exchange is ROADMAP queue 1,
-item 13).  Messages are bit-packed uint32 lanes (C3); a message locates
-its edge by the linear-probe hash (C2) or the linear/binary-search
-ablations.
+Each MPI process of the paper maps to one shard of a mesh
+(:class:`repro_torch.sharding.mesh.Mesh`, S shards on one device; without
+a mesh, one shard holds every vertex).  Vertices are block-distributed
+(``params.partitioner`` realizes other assignments as a relabeling,
+:func:`runtime.vertex_partitioned`), and per-destination aggregation
+buffers are fixed-capacity buckets exchanged once a superstep.  Messages
+are bit-packed uint32 lanes (C3); a message locates its edge by the
+linear-probe hash (C2) or the linear/binary-search ablations.
 
 The superstep loop stays on the device: one launch of the interval kernel
-(``kernels/ghs_superstep``) runs up to ``check_frequency`` supersteps,
+(``kernels/ghs_superstep``, one block a shard, the exchange and the
+silence sum inside the launch) runs up to ``check_frequency`` supersteps,
 counting consecutive silent checks (``empty_iter_cnt_to_break``, paper
 §3.6), so the host reads one vector of three scalars an interval; the
 legacy driver (``params.round_loop == "host"``) launches it for one
@@ -33,9 +38,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import partition as partition_lib
 from repro_torch.core import runtime
-from repro_torch.core.ghs_state import BRANCH, init_shards
+from repro_torch.core.ghs_state import BRANCH, init_stacked
 from repro_torch.core.kruskal_ref import ForestResult
 from repro_torch.core.params import DEFAULT_PARAMS, GHSParams
 from repro_torch.kernels.ghs_superstep import ghs_superstep
@@ -152,31 +156,27 @@ def minimum_spanning_forest(
 
     ``graph`` is a host :class:`Graph` or a
     :class:`repro_torch.core.pipeline.DeviceEdges` (mirrored to the host
-    once: the shards are laid out on the host, then uploaded).
-    ``params.round_loop`` selects the driver: ``"device"`` (default) runs
-    ``check_frequency`` supersteps a launch; ``"host"`` one.  Both give the
-    same forest.  ``device=None`` runs on the CUDA card and raises when
-    there is none; ``device="cpu"`` runs the kernel's plain version.
-    ``mesh`` and the ``hashed`` / ``balanced`` partitioners (a vertex
-    relabeling) are not ported yet and raise ``NotImplementedError``.
+    once: the shards are laid out on the host, then uploaded).  ``mesh``
+    (a :class:`repro_torch.sharding.mesh.Mesh`) spreads the vertices over
+    its shards on its device; ``params.partitioner`` picks the vertex
+    distribution, a relabeling that keeps canonical edge ids, so the
+    forest is the same for every partitioner and only the message routing
+    changes.  ``params.round_loop`` selects the driver: ``"device"``
+    (default) runs ``check_frequency`` supersteps a launch; ``"host"``
+    one.  Both give the same forest.  ``device=None`` runs on the CUDA
+    card and raises when there is none; ``device="cpu"`` runs the kernel's
+    plain version.
     """
-    dev = runtime.resolve_device(device)
-    runtime.require_one_device(mesh)
-    part = partition_lib.get_partitioner(params.partitioner)
-    if part.name != "block":
-        raise NotImplementedError(
-            f"partitioner={part.name!r} for method='ghs' is not ported yet "
-            f"({runtime.MULTI_GPU}: runtime.vertex_partitioned)")
+    S, dev = runtime.resolve_mesh(mesh, device)
     graph = runtime.as_graph(graph)
     loop = runtime.resolve_round_loop(params.round_loop)
     n = graph.num_vertices
     cap = max_supersteps or (40 * n + 2000)
     empty_needed = max(params.empty_iter_cnt_to_break, 1)
     total_cap = cap + empty_needed - 1   # silence-confirmation steps are free
-    topo, shards = init_shards(
-        graph, 1, params,
+    topo, state = init_stacked(
+        runtime.vertex_partitioned(graph, params.partitioner, S), S, params,
         history_capacity=total_cap if collect_history else 1, device=dev)
-    state = shards[0]
     cfg = superstep_ref.config(topo, params)
 
     stats = GHSStats()
@@ -185,20 +185,18 @@ def minimum_spanning_forest(
     stats.supersteps = steps
 
     # Final state fetch: forest, counters and histories in one transfer.
-    counters = (state.n_processed, state.n_productive, state.n_sent_remote,
-                state.n_sent_local, state.halted)
-    hcap = state.hist_act.shape[0]
-    flat = torch.cat([state.se, state.ceid]
-                     + [c.view(1) for c in counters]
-                     + [state.hist_act, state.hist_sent]).cpu().numpy()
+    fetched = (state.se, state.ceid, state.n_processed, state.n_productive,
+               state.n_sent_remote, state.n_sent_local, state.halted,
+               state.hist_act, state.hist_sent)
+    flat = torch.cat([t.reshape(-1) for t in fetched]).cpu().numpy()
     stats.host_syncs += 1
     stats.extra_syncs += 1
-    eb = topo.eb
-    se, ceid = flat[:eb], flat[eb:2 * eb]
+    parts = np.split(flat, np.cumsum([t.numel() for t in fetched])[:-1])
+    se, ceid = parts[0].reshape(S, -1), parts[1].reshape(S, -1)
     processed, productive, sent_remote, sent_local, halted = (
-        int(v) for v in flat[2 * eb:2 * eb + len(counters)])
-    hist = flat[2 * eb + len(counters):]
-    hist_act, hist_sent = hist[:hcap], hist[hcap:]
+        int(p.sum()) for p in parts[2:7])
+    hist_act = parts[7].reshape(S, -1)
+    hist_sent = parts[8].reshape(S, -1)
 
     mask = np.zeros(graph.num_edges, dtype=bool)
     mask[ceid[se == BRANCH]] = True
@@ -212,7 +210,9 @@ def minimum_spanning_forest(
     stats.halted_fragments = halted
     stats.bytes_remote = stats.sent_remote * bytes_per_msg
     if collect_history:
-        stats.queue_history = tuple(int(x) for x in hist_act[:steps])
+        # The activity is summed over the shards (the same on each); the
+        # sends are each shard's running count, summed here.
+        stats.queue_history = tuple(int(x) for x in hist_act[0][:steps])
         stats.bytes_history = tuple(
-            int(x) * bytes_per_msg for x in hist_sent[:steps])
+            int(x) * bytes_per_msg for x in hist_sent.sum(axis=0)[:steps])
     return res, stats

@@ -31,7 +31,9 @@ shapes and dtypes, except that its uint32 words (``WORD_FIELDS``) are
 carried as int32 tensors of the same bits (torch has few uint32
 operations); only the superstep kernel and its plain version read them,
 as uint32.  :func:`init_shards` lays every shard out in numpy and uploads
-each shard's arrays in one copy.
+each shard's arrays in one copy; :func:`init_stacked` uploads all S shards
+as one state stacked on a leading shard axis, in one copy (the engine's
+state under a mesh, and with one shard).
 """
 from __future__ import annotations
 
@@ -131,8 +133,9 @@ def _build_hash_table(lv: np.ndarray, u: np.ndarray, pos: np.ndarray,
 
 class ShardState(NamedTuple):
     """Per-shard GHS state: torch tensors on the engine's device, with no
-    leading shard axis (:func:`stack_shards` adds one).  The fields marked
-    u32 are ``WORD_FIELDS``: int32 tensors holding the uint32 bits."""
+    leading shard axis (:func:`upload_stacked` builds a state with one).
+    The fields marked u32 are ``WORD_FIELDS``: int32 tensors holding the
+    uint32 bits."""
 
     # --- vertex state (nb,) ---
     sn: torch.Tensor          # i32 vertex state
@@ -397,6 +400,15 @@ def upload(arrays: dict, device) -> ShardState:
         for f, a, o in zip(ShardState._fields, flat, offsets)])
 
 
+def upload_stacked(shards: list, device) -> ShardState:
+    """S shards' numpy arrays (:func:`host_shards`) as ONE
+    :class:`ShardState` whose fields carry the shard axis first, copied to
+    ``device`` in one transfer.  Each per-shard vector of S entries
+    (``og_head``, ``og_tail``, ``in_cnt``) is indexed by the other shard."""
+    return upload({f: np.stack([np.asarray(a[f]) for a in shards])
+                   for f in ShardState._fields}, device)
+
+
 def host_arrays(state: ShardState) -> dict:
     """A state's arrays on the host in the JAX package's dtypes (uint32
     for ``WORD_FIELDS``), copied."""
@@ -422,9 +434,13 @@ def init_shards(
     return topo, [upload(a, dev) for a in shards]
 
 
-def stack_shards(shards: list[ShardState]) -> ShardState:
-    """Stack per-shard states along a leading axis."""
-    return ShardState(*[
-        torch.stack([getattr(sh, f) for sh in shards])
-        for f in ShardState._fields
-    ])
+def init_stacked(
+    graph: Graph, num_shards: int, params: GHSParams,
+    history_capacity: int = 1, device=None,
+) -> tuple[GHSTopology, ShardState]:
+    """:func:`init_shards`, uploaded as one state stacked over the shards
+    (:func:`upload_stacked`)."""
+    from repro_torch.core import runtime
+    dev = runtime.resolve_device(device)
+    topo, shards = host_shards(graph, num_shards, params, history_capacity)
+    return topo, upload_stacked(shards, dev)

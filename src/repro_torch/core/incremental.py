@@ -61,8 +61,9 @@ import torch
 from repro_torch.core import boruvka_dist
 from repro_torch.core import partition as partition_lib
 from repro_torch.core import runtime
+from repro_torch.core import keys as keys_lib
 from repro_torch.core.filter_boruvka import (
-    _below, _level_labels, _thresholds, _upload)
+    _below, _level_labels, _thresholds, _upload, shard_tree)
 from repro_torch.core.graph import Graph, pair_ids, preprocess
 from repro_torch.core.kruskal_ref import ForestResult
 from repro_torch.core.params import DEFAULT_PARAMS, GHSParams
@@ -290,13 +291,15 @@ def _anchor_tree_mask(old: IncrementalForest, new: Graph) -> np.ndarray:
 
 
 def _probe_candidates(g: Graph, tmask: np.ndarray, params: GHSParams,
-                      device: torch.device,
-                      stats: IncrementalStats) -> "tuple[np.ndarray, int]":
+                      device: torch.device, stats: IncrementalStats,
+                      num_shards: int = 1) -> "tuple[np.ndarray, int]":
     """(keep mask, cut-probe candidate count) over ``g``'s edges: the
     device half of the pass.  The level labels, then ``component_maxkey``
     warm-started from the top level (whose threshold is the largest tree
     key, so its loop reads its flag once and does not iterate), then every
-    edge against all three certificates; ONE read brings back both masks."""
+    edge against all three certificates; ONE read brings back both masks.
+    Under a mesh the tree edges are cut into one block a shard, as in the
+    filter pass."""
     put = _upload(device)
     n = g.num_vertices
     tree_pos = np.flatnonzero(tmask)
@@ -305,14 +308,21 @@ def _probe_candidates(g: Graph, tmask: np.ndarray, params: GHSParams,
 
     levels = int(params.update_levels) or int(params.filter_levels)
     thresholds = put(_thresholds(key[tree_pos], levels))
-    t_src, t_dst = put(g.src[tree_pos]), put(g.dst[tree_pos])
-    t_key = put(key[tree_pos])
+    t_src, t_dst, t_key = g.src[tree_pos], g.dst[tree_pos], key[tree_pos]
+    collective, cand_cap = "pmin", None
+    if num_shards > 1:
+        t_src, t_dst, t_key, cand_cap = shard_tree(
+            t_src, t_dst, t_key, n, num_shards,
+            runtime.resolve_collective(params.collective))
+        collective = "compressed" if cand_cap is not None else "pmin"
+    t_src, t_dst, t_key = put(t_src), put(t_dst), put(t_key)
     before = stats.host_syncs
     labels = _level_labels(t_src, t_dst, t_key, thresholds, n, use_pallas,
-                           stats)
+                           stats, collective, cand_cap)
     comp, maxkey = minplus_ops.component_maxkey(
-        t_src, t_dst, t_key, torch.ones_like(t_key, dtype=torch.bool),
-        num_vertices=n, init=labels[-1], use_pallas=use_pallas, stats=stats)
+        t_src, t_dst, t_key, t_key != keys_lib.INF_KEY, num_vertices=n,
+        init=labels[-1], use_pallas=use_pallas, stats=stats,
+        collective=collective, cand_cap=cand_cap)
     stats.label_syncs += stats.host_syncs - before
 
     p_key, p_tree = put(key), put(tmask)
@@ -336,9 +346,11 @@ def plan_updates(
     """Merge and probe: everything in :func:`apply_updates` up to the
     final candidate solve.  ``updated`` optionally passes a precomputed
     :func:`apply_edge_batch` result.  ``device=None`` probes on the CUDA
-    card and raises when there is none."""
-    dev = runtime.resolve_device(device)
-    runtime.require_one_device(mesh, params.collective)
+    card and raises when there is none; ``mesh`` (a
+    :class:`repro_torch.sharding.mesh.Mesh`) probes over its shards on its
+    device."""
+    S, dev = runtime.resolve_mesh(mesh, device)
+    runtime.resolve_collective(params.collective)
     g2 = apply_edge_batch(state.graph, batch) if updated is None else updated
     stats = IncrementalStats()
 
@@ -359,7 +371,7 @@ def plan_updates(
         tmask = hit & state.forest.edge_mask[old_idx] & same_w
     stats.updates_applied = removed + added + changed
     if tmask.any():
-        keep, probes = _probe_candidates(g2, tmask, params, dev, stats)
+        keep, probes = _probe_candidates(g2, tmask, params, dev, stats, S)
         stats.host_syncs += 1     # the fused keep/cross-mask fetch
         stats.extra_syncs += 1
         stats.replacement_probes = probes
@@ -403,10 +415,12 @@ def apply_updates(
     for every knob.  ``stats`` carries ``updates_applied``,
     ``replacement_probes`` and ``candidate_count``, and the final solve's
     counters through ``merge``.  ``device=None`` runs on the CUDA card and
-    raises when there is none.
+    raises when there is none; ``mesh`` runs the probe and the solve over
+    its shards.
     """
     plan = plan_updates(state, batch, params=params, device=device, mesh=mesh)
     res, st = boruvka_dist.minimum_spanning_forest(
-        plan.sub, params=params, device=device, max_rounds=max_rounds)
+        plan.sub, params=params, device=device, mesh=mesh,
+        max_rounds=max_rounds)
     plan.stats.merge(st)
     return finalize_plan(plan, res), plan.stats

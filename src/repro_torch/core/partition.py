@@ -1,16 +1,26 @@
-"""Pluggable edge partitioners for the Borůvka engine.
+"""Pluggable graph partitioners for both engines.
 
-A partitioner maps every canonical edge to a shard, and
-:func:`build_edge_layout` freezes that assignment into an
-:class:`EdgeLayout` (uniform per-shard slot blocks, slot → canonical-edge-id
-table).  The engine records tree edges by slot, so every layout yields the
-same forest; the layout only decides which slot an edge occupies and the
-padded slot count, which sets the engine's buffer and kernel shapes.
+* The Borůvka engine distributes edges: a partitioner maps every canonical
+  edge to a shard (:meth:`Partitioner.edge_shard`), and
+  :func:`build_edge_layout` freezes that assignment into an
+  :class:`EdgeLayout` (uniform per-shard slot blocks, slot →
+  canonical-edge-id table).  The engine records tree edges by slot, so
+  every layout yields the same forest; the layout only decides which slot
+  an edge occupies and the padded slot count, which sets the engine's
+  buffer and kernel shapes.
+* The GHS engine distributes vertices in blocks (``owner = id //
+  ceil(n / S)``, paper §3).  A partitioner supplies a vertex relabeling
+  (:meth:`Partitioner.vertex_perm`) that makes the block rule realize its
+  assignment; :func:`relabel_graph` applies it without touching edge
+  order, weights or canonical ids, so the forest is the same for every
+  partitioner and only the message routing changes.
 
-* ``block``    — contiguous canonical-order blocks (power-of-two padding).
-* ``hashed``   — pseudo-random scatter by splitmix64 of the edge id.
+* ``block``    — contiguous canonical-order blocks (power-of-two padding) /
+  identity labels.
+* ``hashed``   — pseudo-random scatter by splitmix64 of the edge id / of
+  the vertex id.
 * ``balanced`` — contiguous runs snapped to source-vertex boundaries with
-  about equal edge counts.
+  about equal edge counts / vertices snake-packed by descending degree.
 """
 from __future__ import annotations
 
@@ -58,12 +68,19 @@ class EdgeLayout:
 
 
 class Partitioner:
-    """Partitioner contract: ``edge_shard`` gives one shard id per edge."""
+    """Partitioner contract: ``edge_shard`` gives one shard id per edge,
+    ``vertex_perm`` one new id per vertex."""
 
     name: str = "?"
 
     def edge_shard(self, graph: Graph, num_shards: int) -> np.ndarray:
         """(M,) int64 shard id per canonical edge."""
+        raise NotImplementedError
+
+    def vertex_perm(self, graph: Graph, num_shards: int) -> np.ndarray:
+        """(N,) int64 new vertex id per old id; the block rule (``owner =
+        new_id // ceil(N / S)``) realizes the assignment, so at most
+        ``ceil(N / S)`` vertices land in each block."""
         raise NotImplementedError
 
 
@@ -74,6 +91,9 @@ class BlockPartitioner(Partitioner):
         block = -(-graph.num_edges // num_shards) if graph.num_edges else 1
         return np.arange(graph.num_edges, dtype=np.int64) // block
 
+    def vertex_perm(self, graph: Graph, num_shards: int) -> np.ndarray:
+        return np.arange(graph.num_vertices, dtype=np.int64)
+
 
 class HashedPartitioner(Partitioner):
     name = "hashed"
@@ -81,6 +101,14 @@ class HashedPartitioner(Partitioner):
     def edge_shard(self, graph: Graph, num_shards: int) -> np.ndarray:
         h = _mix64(np.arange(graph.num_edges, dtype=np.uint64))
         return (h % np.uint64(num_shards)).astype(np.int64)
+
+    def vertex_perm(self, graph: Graph, num_shards: int) -> np.ndarray:
+        n = graph.num_vertices
+        order = np.argsort(_mix64(np.arange(n, dtype=np.uint64)),
+                           kind="stable")
+        perm = np.empty(n, dtype=np.int64)
+        perm[order] = np.arange(n, dtype=np.int64)
+        return perm
 
 
 class BalancedPartitioner(Partitioner):
@@ -98,6 +126,28 @@ class BalancedPartitioner(Partitioner):
         bounds = np.maximum.accumulate(bounds)
         return (np.searchsorted(bounds, np.arange(m), side="right")
                 - 1).astype(np.int64)
+
+    def vertex_perm(self, graph: Graph, num_shards: int) -> np.ndarray:
+        n, S = graph.num_vertices, num_shards
+        deg = np.zeros(n, dtype=np.int64)
+        np.add.at(deg, graph.src, 1)
+        np.add.at(deg, graph.dst, 1)
+        heavy_first = np.argsort(-deg, kind="stable")
+        # Walk the id space [0, S·block) column-major (one slot a shard a
+        # round), reversing the shard order every other round, and keep
+        # the ids < n: the r-th heaviest vertex takes the r-th slot.  When
+        # S does not divide n the last block is short and its missing ids
+        # are never handed out.
+        block = -(-n // S)
+        rows = np.arange(S, dtype=np.int64)
+        cols = np.arange(block, dtype=np.int64)
+        snake = np.where(cols[:, None] % 2 == 0,
+                         rows[None, :], rows[::-1][None, :])
+        ids = (snake * block + cols[:, None]).ravel()
+        new_of_rank = ids[ids < n]
+        perm = np.empty(n, dtype=np.int64)
+        perm[heavy_first] = new_of_rank
+        return perm
 
 
 PARTITIONERS = {
@@ -192,3 +242,18 @@ def lift_mask(index: np.ndarray, sub_mask: np.ndarray,
     mask = np.zeros(num_edges, dtype=bool)
     mask[index[sub_mask]] = True
     return mask
+
+
+def relabel_graph(graph: Graph, perm: np.ndarray) -> Graph:
+    """Rename the vertices by ``perm`` without touching edge order or
+    weights: edge *i* of the result is canonical edge *i* of the input
+    (same weight, same packed key), its endpoints renamed and put back in
+    ``src < dst`` order, so a forest of the result is a forest over the
+    input's canonical edges."""
+    perm = np.asarray(perm, dtype=np.int64)
+    ps = perm[graph.src]
+    pd = perm[graph.dst]
+    return Graph(num_vertices=graph.num_vertices,
+                 src=np.minimum(ps, pd).astype(np.int32),
+                 dst=np.maximum(ps, pd).astype(np.int32),
+                 weight=graph.weight)

@@ -337,9 +337,10 @@ class DeviceEdges:
         return self._host_graph
 
 
-def _capacity(spec: GraphSpec) -> int:
-    """Power-of-two capacity ≥ num_samples."""
-    return partition_lib.pow2ceil(max(spec.num_samples, 8))
+def _capacity(spec: GraphSpec, num_shards: int = 1) -> int:
+    """Power-of-two capacity ≥ num_samples, divisible by the shard count."""
+    return partition_lib.pow2ceil(
+        -(-max(spec.num_samples, 8) // num_shards)) * num_shards
 
 
 def _put(fill: int, dtype, cap: int, idx: torch.Tensor,
@@ -430,13 +431,16 @@ def build(spec: GraphSpec, mesh=None, device=None) -> DeviceEdges:
     ``device="cpu"`` runs the same ops on the CPU.  The one blocking
     transfer is the deduped edge count.  The result is byte-identical to
     :func:`build_host` of the same spec.
+
+    Under a mesh (:class:`repro_torch.sharding.mesh.Mesh`) the build runs
+    on its device with a capacity the shard count divides: shard s's
+    slice of the canonical buffer is block s of the engines' edge layout,
+    so :func:`runtime.prepare_edges` hands it to the Borůvka engine in
+    place.  The reference has every shard run the counter-based build and
+    keep its slice; with all shards on one device one build is that.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh builds are not ported yet (ROADMAP queue 1, item 13: "
-            "multi-GPU)")
-    dev = runtime.resolve_device(device)
-    cap = _capacity(spec)
+    S, dev = runtime.resolve_mesh(mesh, device)
+    cap = _capacity(spec, S)
     ctr = torch.arange(cap, dtype=torch.int64, device=dev)
     src, dst, w = _SAMPLERS[spec.kind](spec, ctr)
     out_src, out_dst, out_key, count = _preprocess_device(

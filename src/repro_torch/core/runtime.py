@@ -12,7 +12,9 @@ device→host copy per interval), :class:`EngineStats`,
 :func:`forest_from_mask`, the knob validators, and :func:`prepare_edges`
 (the partition layer: a host :class:`Graph` is laid out on the host and
 uploaded, a :class:`repro_torch.core.pipeline.DeviceEdges` is handed to the
-engine in place).
+engine in place; under a mesh the layout has one block of slots a
+shard), :func:`vertex_partitioned` (the GHS engine's vertex partition, a
+relabeling) and :func:`resolve_mesh`.
 """
 from __future__ import annotations
 
@@ -27,11 +29,12 @@ from repro_torch.core import keys as keys_lib
 from repro_torch.core import partition as partition_lib
 from repro_torch.core.graph import PAD_VERTEX, Graph
 from repro_torch.core.kruskal_ref import ForestResult
+from repro_torch.sharding import collectives
+from repro_torch.sharding.mesh import Mesh
 
 ROUND_LOOPS = ("device", "host")
 ROUND_KERNELS = ("xla", "pallas")
 INTERVAL_PIPELINES = (0, 1)
-COLLECTIVES = ("pmin", "compressed")
 
 
 @dataclasses.dataclass
@@ -59,7 +62,9 @@ class EngineStats:
     incremental pass (``core/incremental.py``): the structural edge changes
     a batch applied, and the non-tree edges that cross a component severed
     by a deleted tree edge.  Engines that solve from scratch leave all four
-    at 0.
+    at 0.  ``comm_bytes`` is the per-shard on-wire byte total of the
+    engine's cross-shard reductions under ``params.collective`` (0 with
+    one shard).
     """
 
     host_syncs: int = 0
@@ -73,6 +78,7 @@ class EngineStats:
     replacement_probes: int = 0
     overlapped_syncs: int = 0
     speculative_intervals: int = 0
+    comm_bytes: int = 0
 
 
 class Readback:
@@ -184,24 +190,25 @@ def resolve_round_kernel(round_kernel: str) -> str:
 
 
 def resolve_collective(collective: str) -> str:
-    if collective not in COLLECTIVES:
-        raise ValueError(
-            f"unknown collective {collective!r}; options: {COLLECTIVES}")
-    return collective
+    """Validate the ``params.collective`` knob: ``"pmin"`` full-width
+    reductions, ``"compressed"`` the delta exchange of
+    :func:`repro_torch.sharding.collectives.pmin_compressed`."""
+    return collectives.resolve_collective(collective)
 
 
-MULTI_GPU = "ROADMAP queue 1, item 13: multi-GPU"
-
-
-def require_one_device(mesh=None, collective: str = "pmin") -> None:
-    """Raise for what only a multi-GPU run has: a mesh (or a mesh axis)
-    and the compressed collective.  Neither is ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh runs are not ported yet ({MULTI_GPU})")
-    if resolve_collective(collective) == "compressed":
-        raise NotImplementedError(
-            f"collective='compressed' is not ported yet ({MULTI_GPU})")
+def resolve_mesh(mesh, device) -> Tuple[int, torch.device]:
+    """``(num_shards, device)`` of an engine call: one shard on
+    :func:`resolve_device` of ``device`` without a mesh, else the mesh's
+    shards on its device (a ``device`` that names another raises)."""
+    if mesh is None:
+        return 1, resolve_device(device)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.sharding.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device={device!r} differs from the mesh's "
+                         f"device {mesh.device}")
+    return mesh.num_shards, mesh.device
 
 
 def resolve_interval_pipeline(depth: int) -> int:
@@ -252,7 +259,7 @@ class EdgeBundle:
 
     ``src``/``dst`` (int32, ``PAD_VERTEX`` in padding slots) and ``key``
     (flipped int64, ``INF_KEY`` in padding slots) hold ``layout.num_slots``
-    slots; ``slot`` carries each slot's own index so tree-edge recording
+    slots, shard s's block at ``[s·block, (s+1)·block)``; ``slot`` carries each slot's own index so tree-edge recording
     survives compaction.  ``source`` keeps the caller's input for the host
     mirror the forest is built from; ``staging`` names the path taken.
     """
@@ -272,40 +279,48 @@ class EdgeBundle:
 
 
 def prepare_edges(source, partitioner_name: str, *, chunk: int,
-                  device: torch.device) -> EdgeBundle:
+                  device: torch.device, num_shards: int = 1) -> EdgeBundle:
     """Stage an engine input on ``device`` under the chosen partitioner.
 
     * A host :class:`Graph`: the :class:`EdgeLayout` is built on the host,
       the arrays are gathered into slot order and uploaded once.
-    * A :class:`~repro_torch.core.pipeline.DeviceEdges` under ``block``:
-      its canonical buffers are the block layout, handed over as they
-      stand (moved with ``.to(device)`` if they live on another device);
-      no edge crosses to the host.  Any other partitioner's layout is a
-      host decision, so it mirrors the edges through the host under a
-      ``UserWarning`` that names the reason.
+    * A :class:`~repro_torch.core.pipeline.DeviceEdges` under ``block``
+      whose capacity divides into ``num_shards`` blocks: its canonical
+      buffers are the block layout, handed over as they stand (moved with
+      ``.to(device)`` if they live on another device); no edge crosses to
+      the host.  Otherwise (another partitioner's layout is a host
+      decision, or the capacity does not divide) it mirrors the edges
+      through the host under a ``UserWarning`` that names the reason.
 
-    The path taken is ``EdgeBundle.staging`` (``"device"`` or ``"host"``).
+    With ``num_shards`` S the layout has S blocks, and ``slot`` counts
+    within each block.  The path taken is ``EdgeBundle.staging`` (``"device"`` or ``"host"``).
     """
     part = partition_lib.get_partitioner(partitioner_name)
+    S = num_shards
     if isinstance(source, _device_edges_type()):
-        if part.name == "block":
+        if part.name == "block" and source.capacity % S == 0:
             cap = source.capacity
+            block = cap // S
             eid = np.arange(cap, dtype=np.int64)
             eid[source.num_edges:] = -1
-            layout = partition_lib.EdgeLayout(num_shards=1, block=cap,
+            layout = partition_lib.EdgeLayout(num_shards=S, block=block,
                                               eid=eid)
             return EdgeBundle(
                 layout=layout, src=source.src.to(device),
                 dst=source.dst.to(device), key=source.key.to(device),
-                slot=torch.arange(cap, dtype=torch.int32, device=device),
+                slot=torch.arange(block, dtype=torch.int32,
+                                  device=device).repeat(S),
                 num_vertices=source.num_vertices,
                 num_edges=source.num_edges, source=source, staging="device")
+        why = (f"partitioner {part.name!r} is a host-side layout decision"
+               if part.name != "block" else
+               f"capacity {source.capacity} is not divisible by num_shards "
+               f"{S}")
         warnings.warn(
             f"DeviceEdges cannot take the no-host-round-trip fast path "
-            f"(partitioner {part.name!r} is a host-side layout decision); "
-            f"falling back to a full host mirror", stacklevel=2)
+            f"({why}); falling back to a full host mirror", stacklevel=2)
     graph = as_graph(source)
-    layout = partition_lib.build_edge_layout(graph, part, 1, chunk)
+    layout = partition_lib.build_edge_layout(graph, part, S, chunk)
     valid = layout.eid >= 0
     gather = layout.eid[valid]
     src_p = np.full(layout.num_slots, PAD_VERTEX, np.int32)
@@ -324,3 +339,16 @@ def prepare_edges(source, partitioner_name: str, *, chunk: int,
                       key=put(key_p), slot=put(slot_np),
                       num_vertices=graph.num_vertices,
                       num_edges=graph.num_edges, source=source)
+
+
+def vertex_partitioned(graph: Graph, partitioner_name: str,
+                       num_shards: int) -> Graph:
+    """The GHS engine's vertex partition: a relabeled graph whose block
+    distribution (``owner = id // ceil(n / S)``) is the partitioner's
+    assignment.  Edge order, weights and canonical edge ids stay, so the
+    forest (recorded by canonical id) is the same for every partitioner."""
+    part = partition_lib.get_partitioner(partitioner_name)
+    if part.name == "block":
+        return graph
+    return partition_lib.relabel_graph(graph,
+                                       part.vertex_perm(graph, num_shards))

@@ -1,11 +1,14 @@
-"""Plain version of the GHS interval kernel: the superstep loop of one shard
+"""Plain version of the GHS interval kernel: the superstep loop of S shards
 in Python, over numpy views of the state's CPU tensors.
 
 It runs what ``csrc/ghs_superstep.cu`` runs, in the same order: up to
-``n_steps`` supersteps (ingest, the main-queue pass, the Test-queue drain
-on every ``check``-th superstep, flush, the activity count, the silent
-streak and the history writes), stopping early on an error flag or once
-the streak reaches ``empty_needed``.  Both follow the JAX package's masked
+``n_steps`` supersteps, each of them every shard's own part in shard order
+(ingest, the main-queue pass, the Test-queue drain on every ``check``-th
+superstep, flush), then the exchange (shard d's inbox row block s takes
+what shard s flushed for d, as the reference's ``all_to_all`` orders it),
+then the activity and error sums over the shards (the reference's
+``psum``), the silent streak and the history writes; the loop stops early
+on an error sum or once the streak reaches ``empty_needed``.  Both follow the JAX package's masked
 ``make_superstep`` / ``interval_core`` write for write, as plain sequential
 code: a send whose predicate is false writes nothing, and the queue check
 after a real push sees everything the reference's unconditional check
@@ -15,8 +18,9 @@ interval and are stored back at its end.
 
 Indexing a torch tensor one element at a time costs microseconds, so the
 loop reads and writes numpy views (the uint32 words as uint32 views of
-the int32 tensors).  One shard only: the exchange of a multi-shard run is
-not ported.
+the int32 tensors).  The state carries the shard axis first
+(:func:`repro_torch.core.ghs_state.upload_stacked`); a state without it is
+one shard.
 """
 from __future__ import annotations
 
@@ -82,35 +86,46 @@ _SCALARS = ("mq_head", "mq_tail", "tq_head", "tq_tail", "err", "halted",
             "n_processed", "n_productive", "n_sent_remote", "n_sent_local")
 
 
-class _Shard:
-    """The loop over one shard's state: arrays as numpy views, scalars as
-    Python ints between :meth:`load` and :meth:`store`."""
+def stacked(state: ShardState) -> ShardState:
+    """``state`` with the leading shard axis: as it is, or (one shard
+    without it) every field as a view with an axis of one."""
+    if state.sn.dim() == 2:
+        return state
+    return ShardState(*[t.unsqueeze(0) for t in state])
 
-    def __init__(self, state: ShardState, cfg: Config):
+
+class _Shard:
+    """The loop over shard ``my`` of a stacked state: its arrays as numpy
+    views, its scalars as Python ints between :meth:`load` and
+    :meth:`store`."""
+
+    def __init__(self, state: ShardState, my: int, cfg: Config):
         self.cfg = cfg
+        self.my = my
+        self.S = state.sn.shape[0]
+        self.v0 = cfg.block * my               # first global vertex id
         self.a = {}
         for f in ShardState._fields:
             arr = getattr(state, f).numpy()
-            self.a[f] = arr.view(np.uint32) if f in WORD_FIELDS else arr
+            arr = arr.view(np.uint32) if f in WORD_FIELDS else arr
+            self.a[f] = arr[my:my + 1].reshape(arr.shape[1:])
         for f in ShardState._fields:
             if f not in _SCALARS:
                 setattr(self, f, self.a[f])
-        if self.og.shape[0] != 1:
-            raise NotImplementedError("the superstep loop runs one shard")
         self.compressed = cfg.lanes == 5
         self.hcap = self.hist_act.shape[0]
 
     def load(self):
         for f in _SCALARS:
             setattr(self, "v_" + f, int(self.a[f]))
-        self.og_h = int(self.og_head[0])
-        self.og_t = int(self.og_tail[0])
+        self.og_h = [int(x) for x in self.og_head]
+        self.og_t = [int(x) for x in self.og_tail]
 
     def store(self):
         for f in _SCALARS:
             self.a[f][()] = getattr(self, "v_" + f)
-        self.og_head[0] = self.og_h
-        self.og_tail[0] = self.og_t
+        self.og_head[:] = self.og_h
+        self.og_tail[:] = self.og_t
 
     # --- messages -----------------------------------------------------------
     def encode(self, mtype, level, state, src, dst, fw, fe):
@@ -122,11 +137,12 @@ class _Shard:
 
     def push(self, msg, dst: int, is_test: bool, pos: int):
         """Queue ``msg`` for ``dst`` (an int32 value): local main or Test
-        queue, or the outgoing ring.  A full ring's slot is overwritten and
-        its tail still advances; the overflow flag is set after the write."""
+        queue, or the outgoing ring of its shard.  A full ring's slot is
+        overwritten and its tail still advances; the overflow flag is set
+        after the write."""
         cfg = self.cfg
         ds = dst // cfg.block                  # floor division, as jnp's
-        if ds == 0:
+        if ds == self.my:
             self.v_n_sent_local += 1
             if is_test:
                 slot = self.v_tq_tail % cfg.qcap
@@ -139,16 +155,18 @@ class _Shard:
                 self.mq_pos[slot] = pos
                 self.v_mq_tail += 1
         else:
-            # Row ds of a one-row ring: -1 wraps to row 0 (a negative
-            # index), any other is out of range and the write is dropped;
-            # the tail of row ds % 1 = 0 advances either way.
-            if ds == -1:
-                self.og[0, self.og_t % cfg.ocap] = msg
-            self.og_t += 1
+            # Ring row ds: a negative row from -S wraps (a negative index),
+            # any other outside [0, S) is dropped; the tail of row ds % S
+            # advances either way.  Only that row's fill can have grown.
+            r = ds % self.S
+            if -self.S <= ds < self.S:
+                self.og[r, self.og_t[r] % cfg.ocap] = msg
+            self.og_t[r] += 1
             self.v_n_sent_remote += 1
+            if self.og_t[r] - self.og_h[r] > cfg.ocap:
+                self.v_err |= ERR_QUEUE_OVERFLOW
         if (self.v_mq_tail - self.v_mq_head > cfg.qcap
-                or self.v_tq_tail - self.v_tq_head > cfg.qcap
-                or self.og_t - self.og_h > cfg.ocap):
+                or self.v_tq_tail - self.v_tq_head > cfg.qcap):
             self.v_err |= ERR_QUEUE_OVERFLOW
 
     def send(self, mtype, level, state, src, dst, fw, fe):
@@ -199,7 +217,8 @@ class _Shard:
         ib = int(self.in_branch[lv])
         if self.find_count[lv] == 0 and self.test_edge[lv] == -1 and ib >= 0:
             self.sn[lv] = FOUND
-            self.send(REPORT, int(self.ln[lv]), 0, lv, int(self.nbr[ib]),
+            self.send(REPORT, int(self.ln[lv]), 0, self.v0 + lv,
+                      int(self.nbr[ib]),
                       int(self.best_w[lv]), int(self.best_e[lv]))
 
     def change_core(self, lv: int):
@@ -208,10 +227,11 @@ class _Shard:
         if be < 0:
             self.v_err |= ERR_LOGIC
             return
+        vme = self.v0 + lv
         if self.se[be] == BRANCH:
-            self.send(CHANGE_CORE, 0, 0, lv, int(self.nbr[be]), 0, 0)
+            self.send(CHANGE_CORE, 0, 0, vme, int(self.nbr[be]), 0, 0)
         else:
-            self.send(CONNECT, int(self.ln[lv]), 0, lv, int(self.nbr[be]),
+            self.send(CONNECT, int(self.ln[lv]), 0, vme, int(self.nbr[be]),
                       0, 0)
             self.se[be] = BRANCH
 
@@ -223,7 +243,8 @@ class _Shard:
             q += 1
         if q < b:
             self.test_edge[lv] = q
-            self.send(TEST, int(self.ln[lv]), 0, lv, int(self.nbr[q]),
+            self.send(TEST, int(self.ln[lv]), 0, self.v0 + lv,
+                      int(self.nbr[q]),
                       int(self.fnw[lv]), int(self.fne[lv]))
         else:
             self.test_edge[lv] = -1
@@ -235,16 +256,16 @@ class _Shard:
         if level < ln:                                   # absorb
             self.se[p] = BRANCH
             im_find = self.sn[lv] == FIND
-            self.send(INITIATE, ln, 1 if im_find else 0, lv, u,
+            self.send(INITIATE, ln, 1 if im_find else 0, self.v0 + lv, u,
                       int(self.fnw[lv]), int(self.fne[lv]))
             if im_find:
                 self.find_count[lv] += 1
             return True
         if self.se[p] != BASIC:                          # merge
-            self.send(INITIATE, ln + 1, 1, lv, u, int(self.ewb[p]),
+            self.send(INITIATE, ln + 1, 1, self.v0 + lv, u, int(self.ewb[p]),
                       int(self.etb[p]))
             return True
-        self.push(raw, lv, False, p)                     # postpone
+        self.push(raw, self.v0 + lv, False, p)           # postpone
         return False
 
     def h_initiate(self, u, lv, p, level, state_bit, fw, fe, raw):
@@ -258,8 +279,8 @@ class _Shard:
         self.best_e[lv] = _INF
         for q in range(int(self.indptr[lv]), int(self.indptr[lv + 1])):
             if self.se[q] == BRANCH and q != p:
-                self.send(INITIATE, level, state_bit, lv, int(self.nbr[q]),
-                          fw, fe)
+                self.send(INITIATE, level, state_bit, self.v0 + lv,
+                          int(self.nbr[q]), fw, fe)
                 if state_bit == 1:
                     self.find_count[lv] += 1
         if state_bit == 1:
@@ -268,17 +289,17 @@ class _Shard:
 
     def h_test(self, u, lv, p, level, state_bit, fw, fe, raw):
         if level > int(self.ln[lv]):                     # postpone
-            self.push(raw, lv, self.cfg.relaxed, p)
+            self.push(raw, self.v0 + lv, self.cfg.relaxed, p)
             return False
         if fw != self.fnw[lv] or fe != self.fne[lv]:
-            self.send(ACCEPT, 0, 0, lv, u, 0, 0)
+            self.send(ACCEPT, 0, 0, self.v0 + lv, u, 0, 0)
             return True
         if self.se[p] == BASIC:
             self.se[p] = REJECTED
         if self.test_edge[lv] == p:
             self.test_proc(lv)
         else:
-            self.send(REJECT, 0, 0, lv, u, 0, 0)
+            self.send(REJECT, 0, 0, self.v0 + lv, u, 0, 0)
         return True
 
     def h_accept(self, u, lv, p, level, state_bit, fw, fe, raw):
@@ -309,7 +330,7 @@ class _Shard:
             self.report_proc(lv)
             return True
         if self.sn[lv] == FIND:                          # postpone
-            self.push(raw, lv, False, p)
+            self.push(raw, self.v0 + lv, False, p)
             return False
         bw, be = int(self.best_w[lv]), int(self.best_e[lv])
         if bw < fw or (bw == fw and be < fe):            # my side smaller
@@ -330,7 +351,7 @@ class _Shard:
             src, dst, fw, fe = raw[1], raw[2], raw[3], raw[4]
         else:
             mtype, level, state_bit, src, dst, fw, fe = raw[:7]
-        lv, u = _s32(dst), _s32(src)
+        lv, u = _s32(dst) - self.v0, _s32(src)
         p = pre if pre >= 0 else self.lookup(lv, u)
         if p < 0:
             self.v_err |= ERR_HASH_MISS
@@ -368,19 +389,24 @@ class _Shard:
             self.dispatch(raw, pre)
 
     def ingest(self):
+        """The inbox into the queues, source shard 0 first, each block in
+        row order."""
         cfg = self.cfg
-        cnt = min(max(int(self.in_cnt[0]), 0), cfg.xcap)
+        rows = np.concatenate([
+            self.inbox[s, :min(max(int(self.in_cnt[s]), 0), cfg.xcap)]
+            for s in range(self.S)])
+        cnt = rows.shape[0]
         if cnt:
-            rows = self.inbox[0, :cnt]
             mtypes = rows[:, 0] & 7 if self.compressed else rows[:, 0]
             srcs, dsts = ((rows[:, 1], rows[:, 2]) if self.compressed
                           else (rows[:, 3], rows[:, 4]))
             pre = np.full(cnt, POS_UNRESOLVED, np.int32)
             if cfg.method == "hash":
+                qlv = dsts.view(np.int32) - np.int32(self.v0)
                 got = edge_ops.resolve_batch(
                     *(torch.from_numpy(t) for t in (
-                        self.h_lv, self.h_u, self.h_pos,
-                        dsts.view(np.int32), srcs.view(np.int32))),
+                        self.h_lv, self.h_u, self.h_pos, qlv,
+                        srcs.view(np.int32))),
                     torch.ones(cnt, dtype=torch.bool),
                     max_probes=min(cfg.tsize, _PROBES)).numpy()
                 pre = np.where(got >= 0, got, pre)
@@ -399,51 +425,74 @@ class _Shard:
         if (self.v_mq_tail - self.v_mq_head > cfg.qcap
                 or self.v_tq_tail - self.v_tq_head > cfg.qcap):
             self.v_err |= ERR_QUEUE_OVERFLOW
-        self.in_cnt[0] = 0
+        self.in_cnt[:] = 0
 
-    def flush(self):
-        """Move up to ``xcap`` outgoing messages into the inbox (a one-shard
-        exchange), zeros past them."""
-        cfg = self.cfg
-        k = min(self.og_t - self.og_h, cfg.xcap)
-        self.inbox[0] = 0
-        for c in range(k):
-            self.inbox[0, c] = self.og[0, (self.og_h + c) % cfg.ocap]
-        self.og_h += k
-        self.in_cnt[0] = k
+    def flush(self) -> list:
+        """Take up to ``xcap`` messages off each outgoing ring; returns one
+        ``(ring head before, count)`` a destination shard."""
+        out = []
+        for d in range(self.S):
+            k = min(self.og_t[d] - self.og_h[d], self.cfg.xcap)
+            out.append((self.og_h[d], k))
+            self.og_h[d] += k
+        return out
 
-    def superstep(self, do_test: bool, gstep: int) -> int:
+    def own_part(self, do_test: bool) -> list:
+        """The shard's part of a superstep before the exchange."""
         self.ingest()
         self.process_main()
         if self.cfg.relaxed and do_test:
             self.process_test_q()
-        self.flush()
-        activity = ((self.v_mq_tail - self.v_mq_head)
-                    + (self.v_tq_tail - self.v_tq_head)
-                    + (self.og_t - self.og_h) + int(self.in_cnt[0]))
-        if 0 <= gstep < self.hcap:
-            self.hist_act[gstep] = activity
-            self.hist_sent[gstep] = self.v_n_sent_remote
-        return activity
+        return self.flush()
+
+    def activity(self) -> int:
+        """Messages the shard still holds after the exchange."""
+        return ((self.v_mq_tail - self.v_mq_head)
+                + (self.v_tq_tail - self.v_tq_head)
+                + sum(t - h for t, h in zip(self.og_t, self.og_h))
+                + int(self.in_cnt.sum()))
+
+
+def _exchange(shards: list, flushed: list, cfg: Config) -> None:
+    """The reference's ``all_to_all``: shard d's inbox block s holds the
+    messages shard s took off its ring for d, zeros past them."""
+    for d, dest in enumerate(shards):
+        for s, src in enumerate(shards):
+            head, k = flushed[s][d]
+            dest.inbox[s] = 0
+            for c in range(k):
+                dest.inbox[s, c] = src.og[d, (head + c) % cfg.ocap]
+            dest.in_cnt[s] = k
 
 
 def run_interval(state: ShardState, step0: int, silent0: int, n_steps: int,
                  cfg: Config) -> list:
-    """Up to ``n_steps`` supersteps of one shard's CPU state, in place.
-    Returns ``[step0 + steps_run, silent_streak, err]``, the reference's
-    ``interval_core`` vector: the loop stops once the silent streak
-    reaches ``cfg.empty_needed`` (so a call from a silent state runs
-    nothing) or after a superstep that left an error flag."""
-    sh = _Shard(state, cfg)
-    sh.load()
+    """Up to ``n_steps`` supersteps of a CPU state (its shards on the
+    leading axis), in place.  Returns ``[step0 + steps_run, silent_streak,
+    err]``, the reference's ``interval_core`` vector, with the activity
+    and the error words summed over the shards: the loop stops once the
+    silent streak reaches ``cfg.empty_needed`` (so a call from a silent
+    state runs nothing) or after a superstep whose error sum is not 0."""
+    state = stacked(state)
+    shards = [_Shard(state, s, cfg) for s in range(state.sn.shape[0])]
+    for sh in shards:
+        sh.load()
     i, silent, err = 0, silent0, 0
     while i < n_steps and silent < cfg.empty_needed and err == 0:
         gstep = step0 + i
-        act = sh.superstep(gstep % cfg.check == cfg.check - 1, gstep)
+        do_test = gstep % cfg.check == cfg.check - 1
+        flushed = [sh.own_part(do_test) for sh in shards]
+        _exchange(shards, flushed, cfg)
+        act = sum(sh.activity() for sh in shards)
+        err = sum(sh.v_err for sh in shards)
+        if 0 <= gstep < shards[0].hcap:
+            for sh in shards:
+                sh.hist_act[gstep] = act
+                sh.hist_sent[gstep] = sh.v_n_sent_remote
         silent = silent + 1 if act == 0 else 0
-        err = sh.v_err
         i += 1
-    sh.store()
+    for sh in shards:
+        sh.store()
     return [step0 + i, silent, err]
 
 

@@ -17,18 +17,22 @@ for bit.
 The converged-connectivity loop of the filter and incremental passes,
 :func:`connected_labels` and :func:`component_maxkey`, runs min-hooking and
 :func:`shortcut_relabel` (the pointer-jump kernel under ``use_pallas``) on
-the tensors' device until no active edge crosses two components.
+the tensors' device until no active edge crosses two components.  Under a
+mesh the edges carry the shard axis first: each shard hooks its own edges,
+the hooks meet in a ``pmin`` (or the compressed exchange), and the pointer
+jump runs once on the replicated parents.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import keys as keys_lib
-from repro_torch.core import runtime, union_find
+from repro_torch.core import union_find
 from repro_torch.kernels.segment_min.ops import run_end_min
 from repro_torch.kernels.spmv_minplus import ref
 from repro_torch.kernels.spmv_minplus.spmv_minplus import (
     masked_minplus_scan, pointer_jump)
+from repro_torch.sharding import collectives
 
 INF_KEY = keys_lib.INF_KEY
 # Weight-bits budget of the sort lowering: engine weights lie in (0, 1), so
@@ -138,12 +142,29 @@ def shortcut_relabel(parent: torch.Tensor, comp: torch.Tensor, *,
                         comp.to(torch.int32).contiguous()).to(comp.dtype)
 
 
+def _hook_pmin(parent: torch.Tensor, collective: str,
+               cand_cap: "int | None") -> torch.Tensor:
+    """The shards' ``(S, n)`` hook parents met in one replicated ``(n,)``:
+    the dense ``pmin``, or with ``collective="compressed"`` and a cap the
+    delta exchange against the identity parents (a shard that hooks
+    nothing holds the identity)."""
+    S, n = parent.shape
+    if S == 1:
+        return parent[0]
+    if collective == "compressed" and cand_cap is not None:
+        return collectives.pmin_compressed(
+            parent, default=torch.arange(n, dtype=parent.dtype,
+                                         device=parent.device),
+            cap=cand_cap, num_shards=S)
+    return collectives.pmin(parent)
+
+
 def connected_labels(src: torch.Tensor, dst: torch.Tensor,
                      active: torch.Tensor, *, num_vertices: int,
                      init: "torch.Tensor | None" = None,
                      use_pallas: bool = False, stats=None,
-                     axis_name: "str | None" = None,
-                     collective: str = "pmin") -> torch.Tensor:
+                     collective: str = "pmin",
+                     cand_cap: "int | None" = None) -> torch.Tensor:
     """Converged connected-component labels over the active edges.
 
     Min-hooking and :func:`shortcut_relabel` until no active edge crosses
@@ -161,10 +182,15 @@ def connected_labels(src: torch.Tensor, dst: torch.Tensor,
     each such read adds one to ``stats.host_syncs`` and
     ``stats.extra_syncs`` when ``stats`` is given.  ``active`` must be
     False on padding lanes; endpoints are clipped into ``[0, n)`` before
-    the gathers, so out-of-range padding vertices are safe.  ``axis_name``
-    and ``collective="compressed"`` belong to mesh runs, not ported yet.
+    the gathers, so out-of-range padding vertices are safe.
+
+    Edges of shape ``(S, B)`` are S shards' (the reference under
+    ``shard_map``): each row hooks on its own, the ``(S, n)`` hooks meet in
+    a ``pmin`` — the compressed exchange for ``collective="compressed"``
+    with a ``cand_cap`` — and the loop's flag is any crossing edge of any
+    shard (the reference's ``pmax``); the labels are replicated.  Min is
+    exact, so the labels are the same at every shard count.
     """
-    runtime.require_one_device(axis_name, collective)
     n = num_vertices
     si = src.clamp(0, n - 1).to(torch.int64)
     di = dst.clamp(0, n - 1).to(torch.int64)
@@ -186,6 +212,8 @@ def connected_labels(src: torch.Tensor, dst: torch.Tensor,
         for _ in range(LABEL_CHECK_EVERY):
             parent = union_find.hook_min(n, torch.maximum(cs, cd),
                                          torch.minimum(cs, cd), alive)
+            if parent.dim() == 2:
+                parent = _hook_pmin(parent, collective, cand_cap)
             comp = shortcut_relabel(parent, comp, use_pallas=use_pallas)
             cs, cd, alive = crossing(comp)
 
@@ -194,8 +222,8 @@ def component_maxkey(src: torch.Tensor, dst: torch.Tensor, key: torch.Tensor,
                      active: torch.Tensor, *, num_vertices: int,
                      init: "torch.Tensor | None" = None,
                      use_pallas: bool = False, stats=None,
-                     axis_name: "str | None" = None,
-                     collective: str = "pmin"
+                     collective: str = "pmin",
+                     cand_cap: "int | None" = None
                      ) -> "tuple[torch.Tensor, torch.Tensor]":
     """The loop of :func:`connected_labels`, then one scatter-max of the
     packed keys onto the converged labels.  Returns ``(comp, maxkey)``:
@@ -203,11 +231,14 @@ def component_maxkey(src: torch.Tensor, dst: torch.Tensor, key: torch.Tensor,
     component, or unsigned 0 (``keys.SIGN`` in the flipped form) where the
     component has none; no live key is 0, since weights are positive.
     Signed order of flipped keys is the reference's unsigned order, so the
-    max is exact."""
+    max is exact.  Under a mesh (``(S, B)`` edges) the shards' maxima meet
+    in the reference's ``pmax``: one scatter-max over every shard's edges
+    gives the same words."""
     comp = connected_labels(src, dst, active, num_vertices=num_vertices,
                             init=init, use_pallas=use_pallas, stats=stats,
-                            axis_name=axis_name, collective=collective)
+                            collective=collective, cand_cap=cand_cap)
     n = num_vertices
+    src, key, active = src.reshape(-1), key.reshape(-1), active.reshape(-1)
     # At convergence no active edge crosses, so one endpoint names the
     # component; inactive lanes write one extra slot that is dropped.
     seg = comp[src.clamp(0, n - 1).to(torch.int64)].to(torch.int64)

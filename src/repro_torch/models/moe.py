@@ -8,7 +8,7 @@ Switch-style aux loss, the token replicas sorted by expert (a stable
 sort), three grouped products, a float32 scatter-add combine, and the
 sigmoid-gated shared expert.  The JAX package's expert-parallel path
 (``moe_ep.py``) runs only under a mesh whose model axis is larger than 1;
-it waits for multi-GPU (ROADMAP item 13).
+it waits for shards on several cards (ROADMAP queue 1, item 13b).
 
 The grouped products are ``torch._grouped_mm`` over the sorted replicas,
 the expert stacks kept in the JAX package's (E, in, out) layout; the JAX

@@ -197,25 +197,32 @@ def test_knob_validation_and_unported_paths():
         with pytest.raises(ValueError):
             mst_api.minimum_spanning_forest(g, params=GHSParams(**bad),
                                             device="cpu")
-    for unported in (dict(collective="compressed"),
-                     dict(collective="compressed", round_loop="host")):
-        with pytest.raises(NotImplementedError):
-            mst_api.minimum_spanning_forest(g, params=GHSParams(**unported),
-                                            device="cpu")
-    for unported in (dict(mesh=object()),
-                     dict(params=GHSParams(partitioner="hashed"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mst_api.minimum_spanning_forest(g, method="ghs", device="cpu",
-                                            **unported)
-    for unported in (dict(mesh=object()),
-                     dict(params=GHSParams(collective="compressed"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mst_api.minimum_spanning_forest(g, method="filter_boruvka",
-                                            device="cpu", **unported)
+    # The compressed collective, a mesh and the vertex partitioners are
+    # ported: one shard runs them as the dense path.
+    want = mst_api.minimum_spanning_forest(g, device="cpu")[0].edge_mask
+    for knobs in (dict(collective="compressed"),
+                  dict(collective="compressed", round_loop="host")):
+        got, _ = mst_api.minimum_spanning_forest(
+            g, params=GHSParams(**knobs), device="cpu")
+        assert np.array_equal(got.edge_mask, want)
+    got, _ = mst_api.minimum_spanning_forest(
+        g, method="ghs", device="cpu", params=GHSParams(partitioner="hashed"))
+    assert np.array_equal(got.edge_mask, want)
+    for method in ("ghs", "boruvka"):
+        with pytest.raises(TypeError, match="Mesh"):
+            mst_api.minimum_spanning_forest(g, method=method, device="cpu",
+                                            mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        mst_api.minimum_spanning_forest(g, method="filter_boruvka",
+                                        device="cpu", mesh=object())
+    got, _ = mst_api.minimum_spanning_forest(
+        g, method="filter_boruvka", device="cpu",
+        params=GHSParams(collective="compressed"))
+    assert np.array_equal(got.edge_mask, want)
     with pytest.raises(ValueError):
         mst_api.minimum_spanning_forest(g, method="nope", device="cpu")
     for loop in ("device", "host"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             mst_api.minimum_spanning_forest(
                 g, params=GHSParams(round_loop=loop), device="cpu",
                 mesh=object())
@@ -276,6 +283,12 @@ def test_port_imports_neither_jax_nor_repro():
         "res = serve_lm.serve(get_config('rwkv6-3b', smoke=True), batch=2,\n"
         "                     prompt_len=9, gen=3, device='cpu')\n"
         "assert res.seqs.shape == (2, 3) and res.logits_finite\n"
+        "from repro_torch.sharding import collectives\n"
+        "from repro_torch.sharding.mesh import Mesh\n"
+        "for method in ('boruvka', 'ghs'):\n"
+        "    res, _ = mst_api.minimum_spanning_forest(\n"
+        "        g, method=method, mesh=Mesh(2, 'cpu'))\n"
+        "    assert (res.edge_mask == kruskal_ref.kruskal(g).edge_mask).all()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -295,7 +308,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     pkg = Path(repro_torch.__file__).resolve().parent
     files = sorted(pkg.rglob("*.py")) + [pkg.parents[1] / "chip_smoke.py"]
     for module in ("core/pipeline.py", "core/boruvka_dist.py",
-                   "core/mst_api.py"):
+                   "core/mst_api.py", "sharding/mesh.py",
+                   "sharding/collectives.py"):
         assert pkg / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

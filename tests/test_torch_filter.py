@@ -176,13 +176,16 @@ def test_filter_knob_validation(ref):
             mst_api.minimum_spanning_forest(
                 g, method="filter_boruvka",
                 params=GHSParams(filter_levels=levels), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         mst_api.minimum_spanning_forest(g, method="filter_boruvka",
                                         device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mst_api.minimum_spanning_forest(
-            g, method="filter_boruvka", device="cpu",
-            params=GHSParams(collective="compressed"))
+    # The compressed collective is ported: one shard runs it as the dense
+    # path, and it gives the plain engine's forest.
+    got, _ = mst_api.minimum_spanning_forest(
+        g, method="filter_boruvka", device="cpu",
+        params=GHSParams(collective="compressed"))
+    want, _ = mst_api.minimum_spanning_forest(g, device="cpu")
+    assert np.array_equal(got.edge_mask, want.edge_mask)
 
 
 def test_filter_recursion_bound(ref):
@@ -372,12 +375,20 @@ def test_label_loop_reads_and_kernel_route(monkeypatch, check_every):
     assert len(calls) == batches * check_every
     assert stats.host_syncs == 1 + batches
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        minplus_ops.connected_labels(*args, num_vertices=n, axis_name="x")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        minplus_ops.component_maxkey(*args[:2], torch.zeros(len(src)),
-                                     args[2], num_vertices=n,
-                                     collective="compressed")
+    # Under a mesh (the edges as four shard rows, padded with inactive
+    # lanes) the labels and the reads are the same, and the pointer jump
+    # still runs once an iteration, on the replicated parents.
+    pad = -len(src) % 4
+    rows = [torch.cat([a, torch.zeros(pad, dtype=a.dtype)]).view(4, -1)
+            for a in args]
+    calls.clear()
+    stats = runtime.EngineStats()
+    got = minplus_ops.connected_labels(*rows, num_vertices=n,
+                                       use_pallas=True, stats=stats,
+                                       collective="compressed", cand_cap=8)
+    assert torch.equal(got, want)
+    assert len(calls) == batches * check_every
+    assert stats.host_syncs == 1 + batches
 
 
 def test_subgraph_by_mask_and_lift_match_reference(ref):

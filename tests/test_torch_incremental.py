@@ -425,7 +425,7 @@ def test_update_levels_sweep_identical(ref):
 
 def test_update_entries_raise_without_card_or_with_mesh(ref, monkeypatch):
     p = Pair(ref, ref.generators.generate("rmat", 5, seed=0))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         mst_api.apply_updates(p.state, EdgeBatch.make(), device="cpu",
                               mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

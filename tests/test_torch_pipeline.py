@@ -207,7 +207,7 @@ def test_graph_spec_checks():
     for scale in (0, 27):
         with pytest.raises(ValueError, match="scale must be"):
             pipeline.GraphSpec("rmat", scale)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         pipeline.build(pipeline.GraphSpec("rmat", 5), mesh=object(),
                        device="cpu")
 
