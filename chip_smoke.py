@@ -6,7 +6,14 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ghs-scales 16,18`` only times ``method="ghs"``
-on rmat at those scales: how phase 5e's scale was chosen.)
+on rmat at those scales: how phase 5e's scale was chosen.
+``python3 chip_smoke.py --ghs-compare DIR`` times the GHS interval kernel
+of this checkout against the one of the checkout in DIR, another commit's
+tree, in turns DIR, this, this, DIR, a process each: rmat-GHS_BIG_SCALE's
+first interval at one shard and at GHS_MESH_SHARDS shards, and the
+one-shard solve's kernel time and wall.  ``python3 chip_smoke.py
+--ghs-scan-counts 10,12`` needs no card: it counts the plain interval's
+adjacency scans and hash probes a message on the CPU.)
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -106,7 +113,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       messages, wall time and ns a message (one profiler window) beside the
       Borůvka solve of the same graph, the forest equal to the numpy
       oracle; its first interval, kernel against plain on the whole state,
-      timed beside its bound;
+      timed beside its bound and its chain floor (its messages, one
+      dependent round trip each, at the card's L2-hit latency from a
+      pointer chase, ``_chase_latency``);
 5f. the mesh paths, S shards of a ``Mesh`` on the one card:
    a. ``minimum_spanning_forest(graph, method="boruvka", mesh=Mesh(S))`` on
       phase 3's rmat-20 at S = 2, 4 and 8, both round bodies, both
@@ -253,6 +262,7 @@ MESH_RUNS = 3                   # block partitions; hashed: one (host layout)
 MESH_CHECK_FREQUENCY = 2        # the compressed exchange carries late intervals
 GHS_MESH_SHARDS = 4             # GHS over S shards on GHS_BIG_SCALE (5f)
 GHS_MESH_KERNEL_SHARDS = (2, 4)  # the S-block kernel against its plain version
+CHASE_STEPS = 200_000           # dependent loads a pointer-chase timing
 GHS_MESH_SETTINGS = {           # (partitioner, the paper's optimizations)
     "block": dict(),
     "hashed": dict(partitioner="hashed"),
@@ -2862,6 +2872,87 @@ GHS_ABLATIONS = {     # tests/test_mst_correctness.py's five settings
 }
 
 
+# One thread follows a random cycle of indices, each load's address the
+# last load's value: ld.global.cg over an array past L1 and inside L2 gives
+# the L2-hit latency, ld.global.ca over one inside L1 the L1-hit latency.
+CHASE_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+template <bool L1>
+__global__ void chase(const uint32_t* next, int steps, uint32_t* out,
+                      long long* cycles) {
+  uint32_t i = 0;
+  const long long t0 = clock64();
+  for (int k = 0; k < steps; ++k)
+    i = L1 ? __ldca(next + i) : __ldcg(next + i);
+  cycles[0] = clock64() - t0;
+  out[0] = i;
+}
+extern "C" int chase_run(const void* next, int steps, int l1, void* out,
+                         void* cycles, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto n = static_cast<const uint32_t*>(next);
+  if (l1) chase<true><<<1, 1, 0, s>>>(n, steps, (uint32_t*)out,
+                                      (long long*)cycles);
+  else chase<false><<<1, 1, 0, s>>>(n, steps, (uint32_t*)out,
+                                    (long long*)cycles);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _chase_latency(torch, dev) -> dict:
+    """The card's dependent-load latency, by a pointer chase of one thread
+    over a random cycle (CHASE_SOURCE, built by nvcc into the kernels'
+    build directory: a probe, not a kernel of the port): from L2 over
+    4 MiB (past L1, inside the 50 MB L2), through L1 over 16 KiB, and over
+    256 MiB (mostly from device memory), each after a warm pass of up to
+    2^21 loads; ns a load by CUDA events over CHASE_STEPS loads, cycles a
+    load by clock64."""
+    import numpy as np
+    from repro_torch.kernels import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "chase_probe.cu"
+    lib_path = build.BUILD_DIR / "libchase_probe.so"
+    src.write_text(CHASE_SOURCE)
+    subprocess.run([build.nvcc_path(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.chase_run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name, words, l1 in (("l2", 1 << 20, 0), ("l1", 1 << 12, 1),
+                             ("hbm", 1 << 26, 0)):
+        perm = rng.permutation(words)
+        nxt = np.empty(words, np.uint32)
+        nxt[perm] = np.roll(perm, -1)          # one cycle through every word
+        table = torch.from_numpy(nxt.view(np.int32)).to(dev)
+        sink = torch.zeros(1, dtype=torch.int32, device=dev)
+        cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def run(steps):
+            build.check(lib.chase_run(table.data_ptr(), steps, l1,
+                                      sink.data_ptr(), cycles.data_ptr(),
+                                      stream), "pointer chase")
+        run(min(words, 1 << 21))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run(CHASE_STEPS)
+        stop.record()
+        torch.cuda.synchronize()
+        out[name] = dict(ns=start.elapsed_time(stop) * 1e6 / CHASE_STEPS,
+                         cycles=int(cycles.item()) / CHASE_STEPS,
+                         bytes=4 * words)
+    return out
+
+
 def _ghs_registers(ptxas: str) -> dict:
     """Registers, spills and stack of each interval-kernel instance, keyed
     ``method/lanes/relaxed``."""
@@ -2955,6 +3046,7 @@ def _ghs_first_interval(torch, dev, graph, params, num_shards=1) -> dict:
         raise AssertionError(f"ghs_superstep first interval: kernel != plain "
                              f"on {bad or 'scalars'}")
     popped = int(want["n_processed"].sum())
+    busiest = int(want["n_processed"].max())
     remote = int(want["n_sent_remote"].sum())
     pushed = int(want["n_sent_local"].sum()) + remote
     changed = sum(int((want[f] != before[f]).sum()) for f in (
@@ -2970,7 +3062,8 @@ def _ghs_first_interval(torch, dev, graph, params, num_shards=1) -> dict:
                                else 0))
     return dict(ms=statistics.median(times), times_ms=times,
                 plain_ms=plain_ms, supersteps=out.tolist()[0],
-                messages=popped, pushed=pushed, remote=remote,
+                messages=popped, busiest_shard=busiest, pushed=pushed,
+                remote=remote,
                 changed_words=changed, nbytes=nbytes)
 
 
@@ -3080,24 +3173,38 @@ def phase_ghs(torch, dev, record, ptxas: str) -> tuple[dict, int]:
          f"{statistics.median(walls):.4f} s ({[round(w, 4) for w in walls]}); "
          f"forest = oracle")
     bound_ms, bound_by = _bound_ms(first["nbytes"], 0)
+    chase = _chase_latency(torch, dev)
+    # A message reads its vertex's words after the last message's writes:
+    # at least one dependent round trip each, at the L2-hit latency.
+    floor_ms = first["busiest_shard"] * chase["l2"]["ns"] * 1e-6
+    _log(f"dependent-load latency (pointer chase, one thread): L2 "
+         f"{chase['l2']['ns']:.1f} ns ({chase['l2']['cycles']:.0f} cycles), "
+         f"L1 {chase['l1']['ns']:.1f} ns ({chase['l1']['cycles']:.0f} "
+         f"cycles), 256 MiB {chase['hbm']['ns']:.1f} ns "
+         f"({chase['hbm']['cycles']:.0f} cycles); {_card_line()}")
     _log(f"ghs_superstep first interval of rmat-{GHS_BIG_SCALE} "
          f"({first['supersteps']} supersteps, {first['messages']} messages): "
          f"{first['ms']:.3f} ms ({first['times_ms']}), plain "
          f"{first['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms by bytes "
-         f"({first['nbytes']} bytes); kernel = plain on every array")
+         f"({first['nbytes']} bytes), chain floor {floor_ms:.3f} ms "
+         f"({first['busiest_shard']} messages x 1 L2 round trip); "
+         f"kernel = plain on every array")
+    rec["chase"] = chase
     rec["big"] = dict(scale=GHS_BIG_SCALE, n=big.num_vertices,
                       m=big.num_edges, init_s=init_s, wall_s=wall,
                       supersteps=st.supersteps, intervals=st.intervals,
                       processed=st.processed,
                       ns_per_message=wall / st.processed * 1e9,
                       kernel_ms=kernel_ms, launches=launches,
-                      boruvka_walls_s=walls, profile=prof, first=first)
+                      boruvka_walls_s=walls, profile=prof, first=first,
+                      chain_floor_ms=floor_ms)
     record["ghs"] = rec
     source, replaces = KERNELS["ghs_superstep"]
     row = dict(name="ghs_superstep", route="cuda", source=source,
                replaces=replaces, launches=0, bit_exact=True, max_abs_err=0,
                ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None, lanes=first["messages"])
+               bound_by=bound_by, library_ms=None, lanes=first["messages"],
+               chain_floor_ms=floor_ms)
     return row, launches, (big, oracle, res, st, wall)
 
 
@@ -3268,18 +3375,90 @@ def phase_mesh_ghs(torch, dev, record, big) -> dict:
 
     first = _ghs_first_interval(torch, dev, graph, GHSParams(), S)
     bound_ms, bound_by = _bound_ms(first["nbytes"], 0)
+    chase = record.get("ghs", {}).get("chase") or _chase_latency(torch, dev)
+    floor_ms = first["busiest_shard"] * chase["l2"]["ns"] * 1e-6
     _log(f"ghs_superstep S={S} first interval of rmat-{GHS_BIG_SCALE} "
          f"({first['supersteps']} supersteps, {first['messages']} messages, "
          f"{first['remote']} remote): {first['ms']:.3f} ms "
          f"({first['times_ms']}), plain {first['plain_ms']:.1f} ms, bound "
-         f"{bound_ms:.4f} ms by {bound_by} ({first['nbytes']} bytes); "
-         f"kernel = plain on every array of every shard; grid capacity "
+         f"{bound_ms:.4f} ms by {bound_by} ({first['nbytes']} bytes), chain "
+         f"floor {floor_ms:.3f} ms (the busiest shard's "
+         f"{first['busiest_shard']} messages x 1 L2 round trip); kernel = "
+         f"plain on every array of every shard; grid capacity "
          f"{rec['grid_capacity']} blocks")
     rec["first"] = first
+    rec["chain_floor_ms"] = floor_ms
     record["mesh_ghs"] = rec
     return dict(mesh_shards=S, mesh_launches=mesh_launches,
                 mesh_ms=first["ms"], mesh_plain_ms=first["plain_ms"],
-                mesh_bound_ms=bound_ms, mesh_bound_by=bound_by)
+                mesh_bound_ms=bound_ms, mesh_bound_by=bound_by,
+                mesh_chain_floor_ms=floor_ms)
+
+
+def ghs_scan_counts(scales) -> int:
+    """``python3 chip_smoke.py --ghs-scan-counts 10,12,14,16``: on the CPU
+    (no card), ``method="ghs"`` on rmat at each scale (degree 32, seed
+    SEED, the default GHSParams) through the plain interval, counting what
+    its sequential loop reads: ``test_proc``'s calls and the ``se`` words
+    its scan reads (to the first Basic edge, or the whole window), the
+    adjacency words ``h_initiate`` walks, and the hash slots each edge
+    lookup visits.  Wraps ``ref._Shard``'s methods; changes nothing."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import generators, ghs_message, ghs_state
+    from repro_torch.kernels.ghs_superstep import ref
+    shard = ref._Shard
+    originals = (shard.test_proc, shard.h_initiate, shard.lookup,
+                 shard.handlers)
+    c = dict(test_calls=0, se_words=0, init_words=0, lookups=0, slots=0)
+
+    def test_proc(self, lv):
+        a, b = int(self.indptr[lv]), int(self.indptr[lv + 1])
+        basic = np.flatnonzero(self.se[a:b] == ghs_state.BASIC)
+        c["test_calls"] += 1
+        c["se_words"] += int(basic[0]) + 1 if basic.size else b - a
+        return originals[0](self, lv)
+
+    def h_initiate(self, u, lv, *rest):
+        c["init_words"] += int(self.indptr[lv + 1]) - int(self.indptr[lv])
+        return originals[1](self, u, lv, *rest)
+
+    def lookup(self, lv, u):
+        tsize = self.cfg.tsize
+        h = ((((lv & ref._M32) * ref._K1) & ref._M32)
+             ^ (((u & ref._M32) * ref._K2) & ref._M32)) % tsize
+        steps = 0
+        while steps < tsize:
+            steps += 1
+            if (self.h_lv[h] == lv and self.h_u[h] == u) or self.h_pos[h] < 0:
+                break
+            h = (h + 1) % tsize
+        c["lookups"] += 1
+        c["slots"] += steps
+        return originals[2](self, lv, u)
+
+    shard.test_proc, shard.lookup = test_proc, lookup
+    shard.handlers = tuple(h_initiate if h is originals[1] else h
+                           for h in originals[3])
+    try:
+        for scale in scales:
+            for k in c:
+                c[k] = 0
+            g = generators.rmat(scale, seed=SEED)
+            _, st = ghs_message.minimum_spanning_forest(g, device="cpu")
+            n = st.processed
+            _log(f"plain interval, rmat-{scale} (CPU counts): {n} messages, "
+                 f"{st.supersteps} supersteps; test_proc "
+                 f"{c['test_calls'] / n:.2f} calls a message, "
+                 f"{c['se_words'] / max(c['test_calls'], 1):.1f} se words a "
+                 f"call, {c['se_words'] / n:.1f} a message; h_initiate "
+                 f"{c['init_words'] / n:.1f} adjacency words a message; "
+                 f"hash slots {c['slots'] / n:.2f} a message "
+                 f"({c['lookups']} lookups)")
+    finally:
+        (shard.test_proc, shard.h_initiate, shard.lookup,
+         shard.handlers) = originals
+    return 0
 
 
 def probe_ghs_scales(scales) -> int:
@@ -3287,14 +3466,32 @@ def probe_ghs_scales(scales) -> int:
     rmat at each scale (degree 32, seed SEED), its wall time, supersteps
     and messages logged, the forest held against the numpy oracle; how
     GHS_BIG_SCALE was chosen (17, the largest of 16-18 that ends within
-    60 s, until phase 5f's time took it to 16)."""
+    60 s, until phase 5f's time took it to 16).  Also each scale's first
+    interval on one shard (``_ghs_first_interval``) in ns a message beside
+    the size of its state, and the pointer-chase latencies: whether the
+    time a message follows the state out of L2."""
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import generators, kruskal_ref, mst_api
+    from repro_torch.core import generators, ghs_state, kruskal_ref, mst_api
+    from repro_torch.core.params import GHSParams
     _log(_card_line())
+    dev = torch.device("cuda")
+    _log(f"dependent-load latency (pointer chase, one thread): "
+         f"{_chase_latency(torch, dev)}")
+    for scale in scales:
+        g = generators.rmat(scale, seed=SEED)
+        _, shards = ghs_state.host_shards(g, 1, GHSParams())
+        mib = sum(np.asarray(a).nbytes for a in shards[0].values()) / 2**20
+        first = _ghs_first_interval(torch, dev, g, GHSParams())
+        _log(f"ghs_superstep first interval of rmat-{scale}: state "
+             f"{mib:.1f} MiB, {first['messages']} messages, "
+             f"{first['times_ms']} ms, "
+             f"{min(first['times_ms']) * 1e6 / first['messages']:.1f} ns a "
+             f"message; kernel = plain on every array")
     for scale in scales:
         g = generators.rmat(scale, seed=SEED)
         oracle = kruskal_ref.boruvka_numpy(g)
@@ -3307,6 +3504,93 @@ def probe_ghs_scales(scales) -> int:
             raise AssertionError(f"ghs rmat-{scale}: forest != oracle")
         _log(f"ghs rmat-{scale} (m={g.num_edges}): {wall:.3f} s, supersteps "
              f"{st.supersteps}, messages {st.processed}; forest = oracle")
+    return 0
+
+
+# One turn of --ghs-compare, run in the root of the checkout it times
+# (argv[1]) with that checkout's chip_smoke.py and package.
+COMPARE_TURN = r"""
+import json, re, subprocess, sys, time
+from pathlib import Path
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch import kernels
+from repro_torch.core import generators, mst_api
+from repro_torch.core.params import GHSParams
+from repro_torch.kernels import build
+t0 = time.perf_counter()
+build.build_all(("ghs_superstep",))
+build_s = time.perf_counter() - t0
+sass = subprocess.run(
+    [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
+     str(build.library_path("ghs_superstep"))],
+    capture_output=True, text=True, check=True).stdout
+sizes = [len(re.findall(r"/\*[0-9a-f]{4,}\*/", f))
+         for f in sass.split("Function : ")[1:]]
+dev = torch.device("cuda")
+g = generators.rmat(cs.GHS_BIG_SCALE, seed=cs.SEED)
+one = cs._ghs_first_interval(torch, dev, g, GHSParams())
+mesh = cs._ghs_first_interval(torch, dev, g, GHSParams(), cs.GHS_MESH_SHARDS)
+kernels.reset_launches()
+out = []
+prof = cs._profile_window(
+    torch, lambda: out.append(mst_api.minimum_spanning_forest(g, method="ghs")),
+    "ghs compare", "chip_smoke_profile_ghs_compare.txt",
+    kernel_names=("ghs_interval",))
+res, st = out[0]
+print(json.dumps(dict(
+    build_s=build_s, sass_instructions=[min(sizes), max(sizes)],
+    first_ms=one["times_ms"], first_messages=one["messages"],
+    mesh_ms=mesh["times_ms"], mesh_messages=mesh["messages"],
+    solve_s=prof["window_s"], idle_share=prof["idle_share"],
+    kernel_ms=sum(ms for k, ms, _ in prof["top"] if "ghs_interval" in k),
+    launches=kernels.LAUNCHES["ghs_superstep"], supersteps=st.supersteps,
+    messages=st.processed, tree_edges=res.num_tree_edges,
+    total_weight=res.total_weight)))
+"""
+
+
+def compare_ghs(other: str) -> int:
+    """``python3 chip_smoke.py --ghs-compare DIR``: the GHS interval kernel
+    of this checkout against the one of the checkout in DIR (another
+    commit's tree), on one card, in turns DIR, this, this, DIR, each a
+    process of its own that builds its tree's kernel and runs its tree's
+    code (COMPARE_TURN): the SASS instructions of its instances (fewest,
+    most; ``cuobjdump``), rmat-GHS_BIG_SCALE's first interval at one shard
+    and at GHS_MESH_SHARDS shards (three fresh states each, CUDA events,
+    the kernel held against its plain version on the whole state), and
+    the one-shard solve in one profiler window (its wall, the interval
+    kernel's device time, launches).  Fails unless both trees give the
+    same supersteps, messages and forest."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = _card_line()
+    _log(card)
+    trees = {"other": Path(other).resolve(), "this": ROOT}
+    turns = []
+    for name in ("other", "this", "this", "other"):
+        out = subprocess.run([sys.executable, "-c", COMPARE_TURN,
+                              str(trees[name])], cwd=trees[name],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            raise AssertionError(f"--ghs-compare {name}: {out.stderr[-3000:]}")
+        turn = dict(tree=name, **json.loads(out.stdout.strip().splitlines()[-1]))
+        _log(json.dumps(turn))
+        turns.append(turn)
+    keys = ("supersteps", "messages", "tree_edges", "total_weight",
+            "first_messages", "mesh_messages", "launches")
+    if len({tuple(t[k] for k in keys) for t in turns}) != 1:
+        raise AssertionError("--ghs-compare: the trees' solves differ")
+    sys.path.insert(0, str(ROOT / "src"))
+    chase = _chase_latency(torch, torch.device("cuda"))
+    _log(f"dependent-load latency (pointer chase, one thread): {chase}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ghs_compare.json").write_text(json.dumps(
+        dict(card=card, turns=turns, chase=chase), indent=1))
+    print(card)
     return 0
 
 
@@ -3454,4 +3738,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ghs-scales"]:
         sys.exit(probe_ghs_scales(int(x) for x in sys.argv[2].split(",")))
+    if sys.argv[1:2] == ["--ghs-compare"]:
+        sys.exit(compare_ghs(sys.argv[2]))
+    if sys.argv[1:2] == ["--ghs-scan-counts"]:
+        sys.exit(ghs_scan_counts(int(x) for x in sys.argv[2].split(",")))
     sys.exit(main())

@@ -7,15 +7,20 @@ the device as nested ``lax.while_loop``s over scalar state
 ``process_test_q``, the hash probe and ``test_proc``'s cursor scan); torch
 has no device loop, so ``csrc/ghs_superstep.cu`` is that loop's
 counterpart.  GHS is sequential by design (one message at a time, each
-handler reading what the last one wrote), so one thread runs each shard's
-loop: the launch is a chain of dependent loads, bound by their latency
-and not by the bytes it touches.  Each block of ``THREADS`` threads first
-finds how many inbox rows may hold words; then its thread 0 runs its
-shard's part of each superstep, and after a grid barrier the whole block
-moves what every shard sent it into its inbox (the reference's
-``all_to_all``); a second barrier, and every block sums the shards'
-activity and error words (the reference's ``psum``).  The launch is
-cooperative: all S blocks must be resident at once, which
+handler reading what the last one wrote): the launch is a chain of
+dependent loads, bound by their latency and not by the bytes it touches.
+One warp runs each shard's loop to shorten that chain: its lanes scan an
+adjacency window of 128 edge states a step by ballot (test_proc's first
+Basic edge, h_initiate's Branch edges) and probe 32 hash slots a step;
+the handled vertex's words are loaded in one burst into registers; the
+next message's hash slots and adjacency bounds, and the one after's
+words, are loaded while a message is handled.  Each block of
+``THREADS`` threads first finds how many inbox rows may hold words; then
+its warp 0 runs its shard's part of each superstep, and after a grid
+barrier the whole block moves what every shard sent it into its inbox
+(the reference's ``all_to_all``); a second barrier, and every block
+sums the shards' activity and error words (the reference's ``psum``).
+The launch is cooperative: all S blocks must be resident at once, which
 :func:`interval` checks with the occupancy API, raising for an S that
 does not fit.  The lookup method, the lane count and
 ``relaxed_test_queue`` are template parameters, one instance each.

@@ -358,11 +358,13 @@ CARD_KNOBS = [dict(ABLATIONS[k]) for k in ABLATIONS] + [
     dict(round_loop="host"), dict(empty_iter_cnt_to_break=4)]
 
 
-def _lockstep(cuda, arrays: dict, topo, params, ctx, max_intervals=None):
+def _lockstep(cuda, arrays: dict, topo, params, ctx, max_intervals=None,
+              out=None):
     """Run the kernel on the card and the plain version on the CPU from the
     same state, one interval at a time, until silence or an error (or for
     ``max_intervals``); every state array and the scalar vector equal after
-    each interval.  Returns the number of intervals."""
+    each interval.  Returns the number of intervals; ``out``, a dict, takes
+    the last state's arrays."""
     cfg = step_ref.config(topo, params)
     cpu = ghs_state.upload(arrays, "cpu")
     card = ghs_state.upload(arrays, cuda)
@@ -380,6 +382,8 @@ def _lockstep(cuda, arrays: dict, topo, params, ctx, max_intervals=None):
         got = ghs_state.host_arrays(card)
         for field in ghs_state.ShardState._fields:
             assert np.array_equal(got[field], want[field]), (ctx, k, field)
+        if out is not None:
+            out.update(want)
         step, silent, err = scal_c.tolist()
         if err or silent >= cfg.empty_needed:
             return k + 1
@@ -395,6 +399,77 @@ def test_gpu_kernel_equals_plain_after_every_interval(cuda, knobs):
     params = GHSParams(**knobs)
     topo, shards = ghs_state.host_shards(g, 1, params, history_capacity=4096)
     assert _lockstep(cuda, shards[0], topo, params, knobs) > 1
+
+
+# The hub graph: rmat-10 at degree 32 (the GHS cell's generator and seed
+# at a small scale).  Its hubs have degrees up to 489, no multiple of 32,
+# so the kernel's warp-wide scans (test_proc's first Basic edge,
+# h_initiate's Branch edges, the linear lookup) run over several windows
+# and end inside one; by silence no hub keeps a Basic edge, so the last
+# scans find none.
+HUB_METHODS = {"hash": {}, "linear": dict(use_hashing=False),
+               "binary": dict(use_hashing=False, hash_table_factor=-1.0)}
+
+
+def _hub_graph():
+    return generators.rmat(10, 32, seed=20)
+
+
+def _hubs(arrays) -> np.ndarray:
+    """The local vertices of degree above 100 in one shard's arrays."""
+    return np.flatnonzero(np.diff(arrays["indptr"]) > 100)
+
+
+def _assert_hub_scans(arrays, final) -> None:
+    """A hub of degree above 100, not a multiple of 32, exists; at silence
+    every hub's edges are Branch or Rejected, some of each."""
+    indptr = arrays["indptr"]
+    hubs = _hubs(arrays)
+    assert any((indptr[h + 1] - indptr[h]) % 32 for h in hubs)
+    for h in hubs:
+        se = final["se"][indptr[h]:indptr[h + 1]]
+        assert not (se == ghs_state.BASIC).any(), h
+        assert (se == ghs_state.BRANCH).any() and \
+            (se == ghs_state.REJECTED).any(), h
+
+
+def test_hub_graph_scans_end_without_basic_edges():
+    """The plain interval on the CPU over the hub graph: the forest equals
+    Kruskal's and every hub ends with no Basic edge (what the card's hub
+    cases rely on)."""
+    g = _hub_graph()
+    params = GHSParams()
+    topo, shards = ghs_state.host_shards(g, 1, params)
+    assert _hubs(shards[0]).size >= 8
+    cfg = step_ref.config(topo, params)
+    state = ghs_state.upload(shards[0], "cpu")
+    scal = torch.zeros(3, dtype=torch.int32)
+    while True:
+        scal = ghs_superstep.interval(state, scal, cfg.check, cfg)
+        _, silent, err = scal.tolist()
+        assert err == 0
+        if silent >= cfg.empty_needed:
+            break
+    _assert_hub_scans(shards[0], ghs_state.host_arrays(state))
+    got, st = mst_api.minimum_spanning_forest(g, method="ghs", device="cpu")
+    _assert_forest(got, kruskal_ref.kruskal(g))
+    assert st.processed == 34440
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relaxed", [True, False])
+@pytest.mark.parametrize("lanes", [5, 8])
+@pytest.mark.parametrize("method", list(HUB_METHODS))
+def test_gpu_kernel_equals_plain_on_hub_scans(cuda, method, lanes, relaxed):
+    g = _hub_graph()
+    params = GHSParams(compress_messages=lanes == 5,
+                       relaxed_test_queue=relaxed, **HUB_METHODS[method])
+    topo, shards = ghs_state.host_shards(g, 1, params, history_capacity=4096)
+    assert topo.lanes == lanes
+    final = {}
+    assert _lockstep(cuda, shards[0], topo, params, (method, lanes, relaxed),
+                     out=final) > 1
+    _assert_hub_scans(shards[0], final)
 
 
 @pytest.mark.gpu

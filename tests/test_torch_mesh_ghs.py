@@ -250,6 +250,39 @@ def test_gpu_mesh_kernel_equals_plain_after_every_interval(cuda, shards,
     assert _lockstep(cuda, host, topo, params, (shards, knobs)) > 1
 
 
+# The hub graph of tests/test_torch_ghs.py: rmat-10 at degree 32, hubs of
+# degree up to 489, no multiple of 32, so the warp-wide scans run over
+# several ragged windows in every shard that holds a hub.
+def _hub_graph():
+    return generators.rmat(10, 32, seed=20)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_hub_graph_mesh_plain_equals_kruskal(shards):
+    """The plain S-shard interval over the hub graph: the forest equals
+    Kruskal's, messages cross shards, and every shard holds a hub of
+    degree above 100."""
+    g = _hub_graph()
+    _, host = ghs_state.host_shards(g, shards, GHSParams())
+    for arrays in host:
+        assert (np.diff(arrays["indptr"]) > 100).any()
+    got, st = ghs_message.minimum_spanning_forest(g, mesh=Mesh(shards, "cpu"))
+    assert np.array_equal(got.edge_mask, kruskal_ref.kruskal(g).edge_mask)
+    assert st.sent_remote > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("knobs", [{}, dict(relaxed_test_queue=False,
+                                            compress_messages=False,
+                                            use_hashing=False)])
+def test_gpu_mesh_kernel_equals_plain_on_hub_scans(cuda, shards, knobs):
+    params = GHSParams(**knobs)
+    topo, host = ghs_state.host_shards(_hub_graph(), shards, params,
+                                       history_capacity=4096)
+    assert _lockstep(cuda, host, topo, params, (shards, knobs)) > 1
+
+
 @pytest.mark.gpu
 def test_gpu_mesh_solve_equals_cpu_and_launches(cuda):
     g = generators.rmat(9, seed=4)
