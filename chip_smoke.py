@@ -201,7 +201,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    c. Jamba's superblock at a quarter of its width and two layers of
       Qwen2-MoE at its full width, float32, card against CPU as in 6c,
       Jamba's prefill SSM state error reported;
-9. one ``{"kernels": [...]}`` line, the card line, and last the result
+9. training of the transformer families (``launch/train.py``):
+   a. the attention Function of the training path (K6 forward, the
+      explicit backward of ``kernels/flash_attention/backward.py``) against
+      autograd through the plain version, at Qwen1.5-0.5B's layer
+      (16/16 heads, hd 64, S 1024), Qwen2.5-14B's GQA shape (40/8, hd 128)
+      and S = 77 non-causal, in float32 and bf16, within the tolerances
+      stated below; forward plus backward timed beside the plain
+      version's, ``scaled_dot_product_attention``'s and the bound;
+   b. ``launch.train.main`` on Qwen1.5-0.5B at its full config (bf16
+      compute, float32 masters), batch 8, seq 1024, six steps on one
+      repeated batch with a warm-up of one step, under remat ``none`` and
+      ``full``: steps 2-5 under sync debug mode "error", the loss finite
+      and falling, K6 launched 24 times a step (48 under ``full``); the
+      median step time, tokens/s, peak memory, the idle share of one
+      profiler window over a step and ``mfu`` against the step's bound;
+   c. two layers at Qwen1.5-0.5B's width in float32, batch 2, seq 128, on
+      the card and on the CPU from the same weights: the loss, the
+      gradient norm and every gradient within the tolerances below;
+   d. Qwen2-MoE-A2.7B at full width, depth cut to two layers, bf16: a
+      nonzero router gradient, three train steps with a finite loss, and
+      the host syncs of steps 2 and 3 reported;
+10. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
@@ -315,6 +336,27 @@ MOE_GEN = 32
 # N 16 and d_conv 4 as in the full config): about 0.93 B parameters.
 JAMBA_PARITY = dict(n_layers=JAMBA_LAYERS, d_model=1024, n_heads=8,
                     n_kv_heads=2, d_ff=3584, d_expert=3584)
+# Phase 9, training.  Qwen1.5-0.5B at its full config (bf16 compute,
+# float32 masters), batch 8, seq 1024, six steps on one repeated batch,
+# under each remat with K6's launches a layer and step; steps 2-5 under
+# sync debug mode "error".
+TRAIN_ARCH = LM_ARCH
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+TRAIN_REMATS = {"none": 1, "full": 2}
+TRAIN_SYNC_FREE = (2, 5)        # first and last step under "error"
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
+TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 2, 3
+# The attention Function (K6 forward, explicit backward) against autograd
+# through the plain version on the card, each gradient: float32 within
+# 1e-4 of its largest |g| (both in float32, sums in another order); bf16
+# within two bf16 ulps at the largest |g| (2**-6 of it): both round float32
+# gradients once, and the backward's rowsum(dO ∘ O) reads K6's bf16 O.
+# Card against CPU, one float32 train step of two layers: the loss within
+# 1e-5 relative, the gradient norm and each gradient within 1e-4 of its
+# largest |g| (sums of depth up to 151,936 in another order).
+TRAIN_F32_TOL = 1e-4
+TRAIN_BF16_REL = 2.0 ** -6
+TRAIN_LOSS_RTOL = 1e-5
 # K8 against its plain version on the card.  float32 (TF32 off): 1e-4
 # absolute on y, times max |y| where that is above 1, and on the float32
 # final state.  bf16: two bf16 ulps of each y (2**-6 of it) plus 1e-5 near
@@ -920,7 +962,6 @@ def _profile_window(torch, run, label, table_name, kernel_names=()) -> dict:
     share, the device ops that took longest, the host's time blocked
     in synchronizing CUDA calls, and how many device ops ran whose names
     hold each string of ``kernel_names``.  Writes the profiler's table."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -929,6 +970,13 @@ def _profile_window(torch, run, label, table_name, kernel_names=()) -> dict:
         run()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
+    return _profile_summary(prof, window, label, table_name, kernel_names)
+
+
+def _profile_summary(prof, window, label, table_name, kernel_names=()):
+    """``_profile_window``'s summary of a finished profiler ``prof`` whose
+    window lasted ``window`` seconds on the host clock."""
+    from torch.autograd import DeviceType
     events = prof.key_averages()
 
     def dev_us(e):
@@ -2741,6 +2789,386 @@ def phase_hybrid_serve(torch, record) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+def _attn_train_cost(q, k, causal: bool):
+    """(bytes, operations) of attention's forward and backward: q, k, v, o
+    once in the forward; q, k, v, o, dO read and dQ, dK, dV written once
+    in the backward; 2 products forward and 5 backward of 2·B·Hq·S²·D
+    operations each, halved when causal."""
+    b, hq, s, d = q.shape
+    half = 0.5 if causal else 1.0
+    nbytes = q.element_size() * (6 * q.numel() + 6 * k.numel())
+    return nbytes, int(7 * 2 * b * hq * s * s * d * half)
+
+
+def phase_train_attention(torch, dev, record) -> list:
+    """Phase 9a: the attention Function of the training path (K6 forward,
+    ``backward.py``'s explicit backward) against autograd through the
+    plain version, at Qwen1.5-0.5B's layer, Qwen2.5-14B's GQA shape and
+    S = 77 non-causal, in float32 and bf16: dQ, dK and dV within the
+    tolerances above, K6 launched once a forward; forward plus backward
+    timed beside the plain version's and ``scaled_dot_product_attention``'s
+    and the bound.  Returns the rows."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import backward as attn_bwd
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention import ref as attn_ref
+    cases = ((f"{LM_ARCH} layer", (LM_BATCH, 16, 16, LM_PROMPT, 64), True),
+             (f"{GQA_ARCH} GQA", (GQA_BATCH, 40, 8, LM_PROMPT, 128), True),
+             ("S 77, not causal", (2, 16, 16, 77, 64), False))
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    rows = []
+    for label, (b, hq, hkv, s, d), causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn(torch, gen, (b, hq, s, d), dtype).requires_grad_()
+            k = _randn(torch, gen, (b, hkv, s, d), dtype).requires_grad_()
+            v = _randn(torch, gen, (b, hkv, s, d), dtype).requires_grad_()
+            do = _randn(torch, gen, (b, hq, s, d), dtype)
+
+            def kernel():
+                o = attn_ops.attention(q, k, v, causal=causal)
+                return torch.autograd.grad(o, (q, k, v), do)
+
+            def plain():
+                o = attn_ref.attention(q, k, v, causal=causal)
+                return torch.autograd.grad(o, (q, k, v), do)
+
+            def library():
+                o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                   enable_gqa=True)
+                return torch.autograd.grad(o, (q, k, v), do)
+
+            kernels.reset_launches()
+            got = kernel()
+            launches = kernels.LAUNCHES["flash_attention"]
+            want = plain()
+            torch.cuda.synchronize()
+            if launches != 1 or any(g.dtype != dtype for g in got):
+                raise AssertionError(f"attention Function [{label}, {dtype}]"
+                                     f": {launches} K6 launches, grads of "
+                                     f"{[g.dtype for g in got]}")
+            rel = TRAIN_F32_TOL if dtype == torch.float32 else TRAIN_BF16_REL
+            errs = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = float((g.float() - w.float()).abs().max())
+                lim = rel * float(w.float().abs().max())
+                errs[name] = err / lim
+                if err > lim:
+                    raise AssertionError(
+                        f"attention backward [{label}, {dtype}] {name}: max "
+                        f"err {err:.3e} above {lim:.3e}")
+            o = attn_ops.attention(q.detach(), k.detach(), v.detach(),
+                                   causal=causal)
+            ms = _time_ms(torch, kernel, 10)
+            bwd_ms = _time_ms(torch, lambda: attn_bwd.attention_backward(
+                q.detach(), k.detach(), v.detach(), o, do, causal=causal),
+                10)
+            plain_ms = _time_ms(torch, plain, 3, warmup=1)
+            try:
+                library_ms = _time_ms(torch, library, 10)
+            except RuntimeError as e:      # a yardstick only
+                _log(f"  sdpa forward+backward [{label}, {dtype}]: {e}")
+                library_ms = None
+            nbytes, nops = _attn_train_cost(q, k, causal)
+            rate = BF16_OPS_PER_S if dtype == torch.bfloat16 \
+                else INT_OPS_PER_S
+            bound_ms, bound_by = _bound_ms(nbytes, nops, rate)
+            row = dict(case=label, dtype=str(dtype).split(".")[1],
+                       shape=[b, hq, hkv, s, d], causal=causal,
+                       err_over_tol=errs, ms=ms, backward_ms=bwd_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            _log(f"attention forward+backward [{label}, {row['dtype']}, "
+                 f"(B, Hq, Hkv, S, D) {tuple(row['shape'])}]: err/tol "
+                 f"{ {k_: round(v_, 4) for k_, v_ in errs.items()} }; "
+                 f"{ms:.4f} ms (backward alone {bwd_ms:.4f}), plain "
+                 f"{plain_ms:.4f}, sdpa "
+                 f"{'failed' if library_ms is None else f'{library_ms:.4f}'}"
+                 f", bound {bound_ms:.4f} ({bound_by})")
+            del q, k, v, do, o, got, want
+            torch.cuda.empty_cache()
+    record.setdefault("train", {})["attention"] = rows
+    return rows
+
+
+# (category, substrings of a device op's name), the first match wins
+TRAIN_OP_KINDS = (
+    ("K6", ("flash_kernel",)),
+    ("AdamW (multi-tensor)", ("multi_tensor_apply",)),
+    ("float32 GEMM", ("f32f32", "sgemm")),
+    ("bf16 GEMM", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce",)),
+    ("gather, scatter, index", ("index", "scatter", "gather", "embedding")),
+    ("copies and casts", ("copy", "Memcpy", "Memset")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _device_breakdown(prof) -> dict:
+    """Device time (ms) and op count of a profiler window by
+    ``TRAIN_OP_KINDS``; the rest under "other"."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        kind = next((k for k, subs in TRAIN_OP_KINDS
+                     if any(x in e.key for x in subs)), "other")
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + getattr(e, "device_time_total", 0) / 1e3,
+                     n + e.count)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def _token_window(np, path: Path, n: int, vocab: int) -> None:
+    """One window of the token file ``data/tokens.TokenFile`` reads: ``n``
+    uint16 tokens (Zipf draws, as the synthetic source's, folded into the
+    vocabulary and uint16), so every step gets the same batch."""
+    rng = np.random.default_rng(LM_SEED)
+    (rng.zipf(1.3, n) % min(vocab, 65536)).astype(np.uint16).tofile(path)
+
+
+def phase_train_run(torch, record) -> dict:
+    """Phase 9b: ``launch.train.main`` on Qwen1.5-0.5B at its full config,
+    batch 8, seq 1024, six steps on a repeated batch (warm-up of one step)
+    under remat ``none`` and ``full``: steps 2-5 under sync debug mode
+    "error", the loss finite and falling, K6 launched once a layer a step
+    (twice under ``full``); the median step (CUDA events between the step
+    ends of steps 2-5), tokens/s, peak memory, one profiler window over
+    step 6 and ``mfu`` against the step's bound.  Returns K6's launches a
+    step under each remat."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launch
+    cfg = get_config(TRAIN_ARCH)
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "train_tokens.bin"
+    _token_window(np, path, TRAIN_BATCH * (TRAIN_SEQ + 1) + 1, cfg.vocab)
+    first, last = TRAIN_SYNC_FREE
+    out, per_step = {}, {}
+    for remat, per_layer in TRAIN_REMATS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, ends, k6, prof = [], [], [], {}
+
+        def on_step(step, state, metrics):
+            losses.append(metrics["loss"])
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            k6.append(kernels.LAUNCHES["flash_attention"])
+            if step == first - 1:
+                torch.cuda.set_sync_debug_mode("error")
+            elif step == last:
+                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                prof["p"].start()
+                prof["t0"] = time.perf_counter()
+            elif step == last + 1:
+                torch.cuda.synchronize()
+                prof["window"] = time.perf_counter() - prof["t0"]
+                prof["p"].stop()
+
+        t0 = time.perf_counter()
+        try:
+            state = train_launch.main(
+                ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+                 str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+                 "--warmup-steps", "1", "--remat", remat, "--data", "file",
+                 "--data-path", str(path), "--log-every", str(TRAIN_STEPS),
+                 "--seed", str(LM_SEED)], on_step=on_step)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        del state
+        vals = [float(x) for x in losses]
+        steps_k6 = [b - a for a, b in zip([0] + k6[:-1], k6)]
+        if not all(math.isfinite(x) for x in vals) or vals[-1] >= vals[0]:
+            raise AssertionError(f"train remat={remat}: losses {vals}")
+        if set(steps_k6) != {per_layer * cfg.n_layers}:
+            raise AssertionError(f"train remat={remat}: K6 launches a step "
+                                 f"{steps_k6}, expected "
+                                 f"{per_layer * cfg.n_layers}")
+        step_ms = [ends[i - 1].elapsed_time(ends[i])
+                   for i in range(first - 1, last)]
+        median_ms = statistics.median(step_ms)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        # 6·N (forward and backward of every parameter, the tied head
+        # included) plus the attention's 12·L·d·S a token
+        flops = tokens * (6 * n_params
+                          + 12 * cfg.n_layers * cfg.q_dim * TRAIN_SEQ)
+        bound_ms = flops / BF16_OPS_PER_S * 1e3
+        window = _profile_summary(prof["p"], prof["window"],
+                                  f"train step {last + 1}, remat={remat}",
+                                  f"chip_smoke_profile_train_{remat}.txt",
+                                  kernel_names=("flash_kernel",))
+        kinds = _device_breakdown(prof["p"])
+        for kind, (ms, n) in kinds.items():
+            _log(f"  train step {last + 1} ({remat}) device time: {kind} "
+                 f"{ms:.3f} ms over {n} ops")
+        out[remat] = dict(
+            losses=vals, step_ms=step_ms, median_step_ms=median_ms,
+            tokens_per_s=tokens / (median_ms / 1e3), peak_gib=peak,
+            k6_per_step=steps_k6, params=n_params, step_flops=flops,
+            bound_ms=bound_ms, mfu=bound_ms / median_ms, wall_s=wall,
+            idle_share=window["idle_share"],
+            device_busy_ms=window["device_busy_ms"],
+            busy_over_median_step=window["device_busy_ms"] / median_ms,
+            profile_k6=window["counts"], device_ms_by_kind=kinds)
+        per_step[remat] = steps_k6[0]
+        _log(f"train {TRAIN_ARCH} remat={remat}: batch {TRAIN_BATCH} seq "
+             f"{TRAIN_SEQ}, {n_params} parameters, losses "
+             f"{[round(x, 4) for x in vals]}; steps {first}-{last} under "
+             f"sync debug mode 'error'; step ms {[round(x, 3) for x in step_ms]}"
+             f", median {median_ms:.3f} ms, {tokens / median_ms * 1e3:.1f} "
+             f"tok/s, peak {peak:.2f} GiB; K6 a step {steps_k6}; bound "
+             f"{bound_ms:.3f} ms ({flops / tokens / 1e9:.4f} GFLOP a token "
+             f"at 989 TFLOP/s), mfu {bound_ms / median_ms:.4f}; step "
+             f"{last + 1}'s device busy time over the median step "
+             f"{window['device_busy_ms'] / median_ms:.4f} (its profiled "
+             f"window's idle share {window['idle_share']} counts the "
+             f"profiler's host overhead); wall {wall:.1f} s")
+        torch.cuda.empty_cache()
+    record.setdefault("train", {})["run"] = out
+    return per_step
+
+
+def phase_train_parity(torch, dev, record) -> None:
+    """Phase 9c: two layers at Qwen1.5-0.5B's width in float32, batch 2,
+    seq 128, from the same weights on the card (K6, the explicit backward)
+    and on the CPU (the plain versions): the loss, the gradient norm and
+    every gradient within the tolerances above; K6 once a layer."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=PARITY_LAYERS, compute_dtype="float32")
+    card = transformer.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                            cfg, master=torch.float32)
+    cpu = transformer.Transformer(cfg, device="cpu", master=torch.float32)
+    cpu.load_state_dict(card.state_dict())
+    batch = api.synth_batch(LM_SEED, cfg, TRAIN_PARITY_BATCH,
+                            TRAIN_PARITY_SEQ, device="cpu")
+
+    def grads(model, b):
+        names, leaves = zip(*model.named_parameters())
+        loss = transformer.loss_fn(model, b, cfg)
+        g = torch.autograd.grad(loss, leaves)
+        return (float(loss.detach()), float(opt.global_norm(g)),
+                dict(zip(names, g)))
+
+    kernels.reset_launches()
+    got_loss, got_norm, got = grads(card, {k: v.to(dev)
+                                           for k, v in batch.items()})
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want_loss, want_norm, want = grads(cpu, batch)
+    worst = ("", 0.0)
+    for n, w in want.items():
+        err = float((got[n].cpu() - w).abs().max())
+        ratio = err / (TRAIN_F32_TOL * float(w.abs().max()))
+        worst = max(worst, (n, ratio), key=lambda t: t[1])
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    norm_rel = abs(got_norm - want_norm) / want_norm
+    _log(f"train parity (card vs CPU, f32, {PARITY_LAYERS} layers of "
+         f"{TRAIN_ARCH}, batch {TRAIN_PARITY_BATCH}, seq {TRAIN_PARITY_SEQ})"
+         f": loss {got_loss:.6f} vs {want_loss:.6f} (rel {loss_rel:.3e}), "
+         f"grad norm {got_norm:.6f} vs {want_norm:.6f} (rel {norm_rel:.3e}),"
+         f" worst gradient err/tol {worst[1]:.4f} ({worst[0]}); launches "
+         f"{launches}")
+    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_F32_TOL \
+            or worst[1] > 1.0:
+        raise AssertionError("training parity: the card's loss or gradients "
+                             "differ from the CPU's")
+    if launches != {"flash_attention": PARITY_LAYERS}:
+        raise AssertionError(f"training parity launches {launches}")
+    record.setdefault("train", {})["parity"] = dict(
+        loss_rel=loss_rel, norm_rel=norm_rel, worst_grad=worst)
+
+
+def phase_train_moe(torch, dev, record) -> None:
+    """Phase 9d: Qwen2-MoE-A2.7B at full width, depth cut to two layers,
+    bf16 compute, float32 masters, batch 8, seq 1024: the router's
+    gradient nonzero and finite, then three train steps (remat ``none``)
+    with a finite loss; the host syncs of steps 2 and 3 (sync debug mode
+    "warn") reported."""
+    import warnings
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (TrainHParams, init_train_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=TRAIN_MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(LM_SEED),
+                             cfg)
+    batch = api.synth_batch(LM_SEED, cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    model = state["params"]
+    routers = [blk.moe.router for blk in model.layers]
+    loss = transformer.loss_fn(model, batch, cfg)
+    rg = torch.autograd.grad(loss, routers)
+    router_norm = [float(g.norm()) for g in rg]
+    del rg, loss
+    if not all(math.isfinite(x) and x > 0 for x in router_norm):
+        raise AssertionError(f"MoE router gradient norms {router_norm}")
+    step = make_train_step(cfg, TrainHParams(
+        remat="none", adamw=opt.AdamWConfig(warmup_steps=1)))
+    kernels.reset_launches()
+    losses = []
+    state, m = step(state, batch)
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(TRAIN_MOE_STEPS - 1):
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (TRAIN_MOE_STEPS - 1)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    vals = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    n_params = sum(p.numel() for p in model.parameters())
+    del state, model, routers, batch
+    torch.cuda.empty_cache()
+    _log(f"train {MOE_ARCH} at {TRAIN_MOE_LAYERS} layers (bf16, float32 "
+         f"masters, {n_params} parameters, batch {TRAIN_BATCH}, seq "
+         f"{TRAIN_SEQ}): router gradient norms "
+         f"{[f'{x:.4g}' for x in router_norm]}; losses "
+         f"{[round(x, 4) for x in vals]}; host syncs in steps 2-"
+         f"{TRAIN_MOE_STEPS}: {syncs}; {dt * 1e3:.1f} ms a step (host clock)"
+         f", peak {peak:.2f} GiB; launches {launches}")
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"MoE training losses {vals}")
+    if launches != {"flash_attention": TRAIN_MOE_LAYERS * TRAIN_MOE_STEPS}:
+        raise AssertionError(f"MoE training launches {launches}")
+    record.setdefault("train", {})["moe"] = dict(
+        router_grad_norms=router_norm, losses=vals, host_syncs=syncs,
+        step_s=dt, peak_gib=peak, params=n_params)
+
+
+# ---------------------------------------------------------------------------
 # Phase 5d: the MST service
 # ---------------------------------------------------------------------------
 
@@ -3720,9 +4148,21 @@ def main() -> int:
         "flash_attention": PARITY_LAYERS,
         "decode_attention": PARITY_LAYERS * (PARITY_GEN - 1)})
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_train_attention(torch, dev, record)
+    train_k6 = phase_train_run(torch, record)
+    phase_train_parity(torch, dev, record)
+    phase_train_moe(torch, dev, record)
+    record["train_phase_s"] = time.perf_counter() - t0
+    _log(f"phase 9 (training): {record['train_phase_s']:.1f} s; K6 a step "
+         f"{train_k6}")
+
     rows.append(ghs_row)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "flash_attention":
+            row["train_launches_per_step"] = train_k6
     record["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

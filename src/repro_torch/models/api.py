@@ -1,11 +1,13 @@
-"""Uniform model API: family -> (init, prefill, decode_step,
-make_decode_state), and ``synth_batch`` (random batches for smoke runs).
+"""Uniform model API: family -> (init, loss_fn, prefill, decode_step,
+make_decode_state), ``train_input_specs`` (a training batch's shapes and
+types as ``meta`` tensors) and ``synth_batch`` (random batches for smoke
+runs).
 
 The dense, moe (on the transformer, as in the JAX package), ssm (RWKV6)
-and hybrid (Jamba) families are ported.  The JAX package's ``loss_fn``
-field and ``train_input_specs`` wait for training; the other families wait
-for their slice of ROADMAP queue 1, item 14, named in the error each
-raises.
+and hybrid (Jamba) families are ported.  The dense and moe families
+train; the ``loss_fn`` of ssm and hybrid raises until their backwards
+come (ROADMAP queue 1, item 14, slice 3b).  The other families wait for
+their slice of item 14, named in the error each raises.
 """
 from __future__ import annotations
 
@@ -24,14 +26,28 @@ WAITING = {
     "encdec": "item 14, slice 4 (the remaining families)",
     "vlm": "item 14, slice 4 (the remaining families)",
 }
+# family -> the slice that brings its training
+TRAINING_WAITS = {
+    "ssm": "item 14, slice 3b (RWKV6 training: a backward of K9)",
+    "hybrid": "item 14, slice 3b (Jamba training: a backward of K8)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
-    init: Callable                  # (generator, cfg) -> model
+    init: Callable                  # (generator, cfg, master=None) -> model
+    loss_fn: Callable               # (model, batch, cfg, remat=) -> loss
     prefill: Callable
     decode_step: Callable
     make_decode_state: Callable     # (cfg, batch, max_len, device) -> state
+
+
+def _training_waits(family: str) -> Callable:
+    def loss_fn(params, batch, cfg, *, remat: str = "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: loss_fn of the {family} family is not ported yet "
+            f"(ROADMAP queue 1, {TRAINING_WAITS[family]})")
+    return loss_fn
 
 
 def _transformer_state(cfg, batch, max_len, device=None):
@@ -49,19 +65,39 @@ def _jamba_state(cfg, batch, max_len, device=None):
 def get_model(cfg: ModelConfig) -> ModelApi:
     fam = cfg.family
     if fam in transformer.FAMILIES:
-        return ModelApi(transformer.init, transformer.prefill,
-                        transformer.decode_step, _transformer_state)
+        return ModelApi(transformer.init, transformer.loss_fn,
+                        transformer.prefill, transformer.decode_step,
+                        _transformer_state)
     if fam == "ssm":
-        return ModelApi(rwkv6.init, rwkv6.prefill, rwkv6.decode_step,
-                        _rwkv_state)
+        return ModelApi(rwkv6.init, _training_waits(fam), rwkv6.prefill,
+                        rwkv6.decode_step, _rwkv_state)
     if fam == "hybrid":
-        return ModelApi(jamba.init, jamba.prefill, jamba.decode_step,
-                        _jamba_state)
+        return ModelApi(jamba.init, _training_waits(fam), jamba.prefill,
+                        jamba.decode_step, _jamba_state)
     if fam in WAITING:
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family is not ported yet (ROADMAP queue "
             f"1, {WAITING[fam]})")
     raise ValueError(fam)
+
+
+def train_input_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """One training batch's tensors as ``meta`` tensors (shapes and types,
+    nothing allocated): ``tokens`` and ``labels`` (B, S) int32, and the
+    frontend embeddings of the encoder–decoder and VLM families."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs = dict(tokens=spec((batch, seq), torch.int32),
+                 labels=spec((batch, seq), torch.int32))
+    if cfg.family == "encdec":
+        specs["frame_embeds"] = spec((batch, seq, cfg.d_frontend),
+                                     layers.cdtype(cfg))
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = spec(
+            (batch, cfg.n_frontend_tokens, cfg.d_frontend),
+            layers.cdtype(cfg))
+    return specs
 
 
 def synth_batch(rng_seed: int, cfg: ModelConfig, batch: int, seq: int, *,

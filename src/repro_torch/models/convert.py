@@ -8,7 +8,9 @@ The port's modules hold ``F.linear`` matrices (out, in), in the compute
 type or float32 as each module says, one module per layer.  The expert
 stacks of an MoE layer keep the JAX package's (E, in, out) layout, which
 the grouped product takes.  :func:`from_reference` is the one place
-that maps the one layout onto the other.
+that maps the one layout onto the other, and :func:`to_reference` its
+inverse, for any name→tensor mapping of the port's parameter names
+(parameters, gradients, optimizer moments).
 """
 from __future__ import annotations
 
@@ -54,19 +56,27 @@ def _port(key: str, leaf: np.ndarray) -> np.ndarray:
     return leaf.T if key.rsplit(".", 1)[-1] in TRANSPOSED else leaf
 
 
-def from_reference(params, cfg: ModelConfig, *, device=None):
+def from_reference(params, cfg: ModelConfig, *, device=None,
+                   train: bool = False):
     """The port's model of ``cfg`` (a :class:`~repro_torch.models.
     transformer.Transformer` for the dense and moe families, an
     :class:`~repro_torch.models.rwkv6.RWKV6` for ssm, a
     :class:`~repro_torch.models.jamba.Jamba` for hybrid) holding ``params``
     (the JAX pytree, leaves as numpy arrays or anything ``np.asarray``
-    takes), on the card unless ``device`` names another.  Raises if a
-    parameter is missing, left over or of another shape."""
+    takes), on the card unless ``device`` names another.  ``train`` loads
+    them as float32 masters that require grad (the dense and moe
+    families).  Raises if a parameter is missing, left over or of another
+    shape."""
     if cfg.family not in MODELS:
         raise NotImplementedError(f"{cfg.name}: no port of the {cfg.family} "
                                   f"family to load into")
     cls, stack = MODELS[cfg.family]
-    model = cls(cfg, device=runtime.resolve_device(device))
+    if train and cfg.family not in transformer.FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family waits for ROADMAP "
+            f"queue 1, item 14, slice 3b")
+    kw = dict(master=torch.float32) if train else {}
+    model = cls(cfg, device=runtime.resolve_device(device), **kw)
     state = {}
     for key, leaf in _leaves(params):
         top, _, rest = key.partition(".")
@@ -88,3 +98,51 @@ def _load(model, state: dict):
     model.load_state_dict({k: torch.tensor(np.asarray(v))
                            for k, v in state.items()}, strict=True)
     return model
+
+
+def to_reference(tensors, cfg: ModelConfig) -> dict:
+    """The JAX pytree layout of ``tensors``, a mapping from the port's
+    parameter names (``named_parameters`` or ``state_dict``) to tensors of
+    those shapes: nested dicts of float32 numpy arrays, matrices back in
+    (in, out), per-layer leaves stacked on the layer axis (and Jamba's
+    substacks on their second axis).  The inverse of
+    :func:`from_reference`'s mapping."""
+    _, stack = MODELS[cfg.family]
+    stacked: dict = {}                   # reference key -> {index: leaf}
+    out: dict = {}
+    for name, t in tensors.items():
+        leaf = _port(name, t.detach().float().cpu().numpy())
+        top, _, rest = name.partition(".")
+        if top != stack:
+            out[name] = leaf
+            continue
+        i, _, rest = rest.partition(".")
+        sub, _, tail = rest.partition(".")
+        if cfg.family == "hybrid" and sub in SUBSTACKED:
+            j, _, tail = tail.partition(".")
+            index = (int(i), int(j))
+            key = f"{stack}.{sub}.{tail}"
+        else:
+            index, key = (int(i),), f"{stack}.{rest}"
+        stacked.setdefault(key, {})[index] = leaf
+    for key, parts in stacked.items():
+        out[key] = _stack(parts)
+    tree: dict = {}
+    for key, leaf in out.items():
+        *path, last = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+def _stack(parts: dict) -> np.ndarray:
+    """One array of the leaves at consecutive indices (tuples of one or two
+    axes, each starting at 0)."""
+    if len(next(iter(parts))) == 1:
+        return np.stack([parts[(i,)] for i in range(len(parts))])
+    n_i = 1 + max(i for i, _ in parts)
+    n_j = len(parts) // n_i
+    return np.stack([np.stack([parts[(i, j)] for j in range(n_j)])
+                     for i in range(n_i)])

@@ -11,7 +11,7 @@ is a Python loop.  Attention runs the flash-attention kernel K6 in the
 prefill and the decode-attention kernel K7 in each decode step, as the
 dense family does; each Mamba mixer runs the selective-scan kernel K8 in
 the prefill (``models/mamba.py``).  ``forward`` and ``loss_fn`` wait for
-training (ROADMAP queue 1, item 14, slice 3).
+training (ROADMAP queue 1, item 14, slice 3b).
 """
 from __future__ import annotations
 

@@ -1,30 +1,34 @@
-"""Shared neural layers: norms, RoPE, GQA attention, SwiGLU and the token
-embedding, in the names of the JAX package's ``models/layers.py``.
+"""Shared neural layers: norms, RoPE, GQA attention, SwiGLU, the token
+embedding and the chunked LM loss, in the names of the JAX package's
+``models/layers.py``.
 
 Each block of parameters is an ``nn.Module`` (:class:`Attention`,
 :class:`SwiGLU`), and each function takes that module as ``p`` where the
 JAX function takes its parameter dict.  Matrices are kept in ``F.linear``'s
-(out, in) layout and in the compute type, cast once when they are made or
-loaded (the JAX package keeps f32 masters and casts at each use: the same
-values).  Norm gains stay float32, as ``rmsnorm`` reads them.  Parameters
-are made with ``requires_grad=False``: the port serves and does not train
-yet.  ``sharding.specs.shard`` is a no-op on one device, so its calls are
-dropped.
+(out, in) layout.  A served module keeps them in the compute type, cast
+once when they are made or loaded, with ``requires_grad=False``; a module
+made for training (``master=torch.float32``) keeps float32 masters that
+require grad, as the JAX package does.  Either way each use casts the
+matrix to the activations' type (``w.to(x.dtype)``), which for a served
+module is the tensor itself.  Norm gains stay float32, as ``rmsnorm``
+reads them.  ``sharding.specs.shard`` is a no-op on one device, so its
+calls are dropped.
 
 Not ported yet: ``attn_decode`` (the per-layer cache and its
-cross-attention branch, with encoder–decoder models), the ``x_kv``
-argument of ``_project_qkv`` and ``attn_apply`` (cross-attention), and
-``chunked_lm_loss`` and ``cross_entropy`` (with training).
+cross-attention branch, with encoder–decoder models) and the ``x_kv``
+argument of ``_project_qkv`` and ``attn_apply`` (cross-attention).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import runtime
 from repro_torch.kernels.decode_attention import ops as decode_ops
@@ -36,12 +40,19 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def param(shape, dtype, device, fill: Optional[float] = None) -> nn.Parameter:
+def wdtype(cfg: ModelConfig, master: Optional[torch.dtype]) -> torch.dtype:
+    """The type a module keeps its matrices in: the compute type for
+    serving (``master`` None), else the master type."""
+    return cdtype(cfg) if master is None else master
+
+
+def param(shape, dtype, device, fill: Optional[float] = None, *,
+          requires_grad: bool = False) -> nn.Parameter:
     """An uninitialized parameter (or one filled with ``fill``)."""
     t = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
         t.fill_(fill)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t, requires_grad=requires_grad)
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -101,25 +112,28 @@ class KVCache:
 
 class Attention(nn.Module):
     """One GQA attention block: ``wq`` (q_dim, d_model), ``wk`` and ``wv``
-    (kv_dim, d_model), ``wo`` (d_model, q_dim) in the compute type; biases
-    ``bq``/``bk``/``bv`` when ``cfg.qkv_bias``; per-head RMS gains
-    ``qn``/``kn`` (float32) when ``cfg.qk_norm``."""
+    (kv_dim, d_model), ``wo`` (d_model, q_dim) in the compute type (or the
+    ``master`` type); biases ``bq``/``bk``/``bv`` when ``cfg.qkv_bias``;
+    per-head RMS gains ``qn``/``kn`` (float32) when ``cfg.qk_norm``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
-        dt = cdtype(cfg)
-        self.wq = param((cfg.q_dim, cfg.d_model), dt, device)
-        self.wk = param((cfg.kv_dim, cfg.d_model), dt, device)
-        self.wv = param((cfg.kv_dim, cfg.d_model), dt, device)
-        self.wo = param((cfg.d_model, cfg.q_dim), dt, device)
+        dt = wdtype(cfg, master)
+        new = functools.partial(param, device=device,
+                                requires_grad=master is not None)
+        self.wq = new((cfg.q_dim, cfg.d_model), dt)
+        self.wk = new((cfg.kv_dim, cfg.d_model), dt)
+        self.wv = new((cfg.kv_dim, cfg.d_model), dt)
+        self.wo = new((cfg.d_model, cfg.q_dim), dt)
         self.bq = self.bk = self.bv = self.qn = self.kn = None
         if cfg.qkv_bias:
-            self.bq = param((cfg.q_dim,), dt, device, 0.0)
-            self.bk = param((cfg.kv_dim,), dt, device, 0.0)
-            self.bv = param((cfg.kv_dim,), dt, device, 0.0)
+            self.bq = new((cfg.q_dim,), dt, fill=0.0)
+            self.bk = new((cfg.kv_dim,), dt, fill=0.0)
+            self.bv = new((cfg.kv_dim,), dt, fill=0.0)
         if cfg.qk_norm:
-            self.qn = param((cfg.hd,), torch.float32, device, 1.0)
-            self.kn = param((cfg.hd,), torch.float32, device, 1.0)
+            self.qn = new((cfg.hd,), torch.float32, fill=1.0)
+            self.kn = new((cfg.hd,), torch.float32, fill=1.0)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random matrices; biases stay zero and gains one."""
@@ -135,13 +149,19 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig) -> Attention:
     return p
 
 
+def _cast(w, x):
+    """``w`` in ``x``'s type (the tensor itself when it is already), or
+    None."""
+    return None if w is None else w.to(x.dtype)
+
+
 def _project_qkv(p: Attention, x, cfg: ModelConfig):
     """q (B, Hq, S, hd), k and v (B, Hkv, S, hd), as views of the
     projections."""
     b, s, _ = x.shape
-    q = F.linear(x, p.wq, p.bq)
-    k = F.linear(x, p.wk, p.bk)
-    v = F.linear(x, p.wv, p.bv)
+    q = F.linear(x, _cast(p.wq, x), _cast(p.bq, x))
+    k = F.linear(x, _cast(p.wk, x), _cast(p.bk, x))
+    v = F.linear(x, _cast(p.wv, x), _cast(p.bv, x))
     q = q.view(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
     k = k.view(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
     v = v.view(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
@@ -163,7 +183,8 @@ def attn_apply(p: Attention, x, cfg: ModelConfig, *, positions,
         k = rope(k, positions, cfg.rope_theta)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = attn_ops.attention(q, k, v, causal=causal)
-    out = F.linear(o.transpose(1, 2).reshape(b, s, cfg.q_dim), p.wo)
+    out = F.linear(o.transpose(1, 2).reshape(b, s, cfg.q_dim),
+                   _cast(p.wo, x))
     if return_kv:
         return out, (k, v)
     return out
@@ -192,7 +213,7 @@ def attn_decode_stacked(p: Attention, x, cfg: ModelConfig, ks, vs,
     length = torch.full((b,), index + 1, dtype=torch.int32, device=x.device)
     o = decode_ops.decode_attention(q[:, :, 0].contiguous(), ks[layer],
                                     vs[layer], length)
-    out = F.linear(o.reshape(b, 1, cfg.q_dim), p.wo)
+    out = F.linear(o.reshape(b, 1, cfg.q_dim), _cast(p.wo, x))
     return out, ks, vs
 
 
@@ -214,14 +235,17 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 class SwiGLU(nn.Module):
-    """``wi`` and ``wg`` (d_ff, d_model), ``wd`` (d_model, d_ff)."""
+    """``wi`` and ``wg`` (d_ff, d_model), ``wd`` (d_model, d_ff), in
+    ``dtype``; trainable when ``requires_grad``."""
 
     def __init__(self, d_model: int, d_ff: int, *, dtype: torch.dtype,
-                 device=None):
+                 device=None, requires_grad: bool = False):
         super().__init__()
-        self.wi = param((d_ff, d_model), dtype, device)
-        self.wg = param((d_ff, d_model), dtype, device)
-        self.wd = param((d_model, d_ff), dtype, device)
+        new = functools.partial(param, dtype=dtype, device=device,
+                                requires_grad=requires_grad)
+        self.wi = new((d_ff, d_model))
+        self.wg = new((d_ff, d_model))
+        self.wd = new((d_model, d_ff))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.wi, self.wg, self.wd):
@@ -236,7 +260,8 @@ def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def swiglu_apply(p: SwiGLU, x):
-    return F.linear(F.silu(F.linear(x, p.wg)) * F.linear(x, p.wi), p.wd)
+    return F.linear(F.silu(F.linear(x, _cast(p.wg, x)))
+                    * F.linear(x, _cast(p.wi, x)), _cast(p.wd, x))
 
 
 # ---------------------------------------------------------------------------
@@ -257,10 +282,60 @@ def embed_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p, tokens, cfg: ModelConfig):
-    """Rows of ``p.embed`` for int tokens (B, S)."""
-    return F.embedding(tokens, p.embed)
+    """Rows of ``p.embed`` for int tokens (B, S), in the compute type."""
+    return F.embedding(tokens, p.embed).to(cdtype(cfg))
+
+
+def _head(p, cfg: ModelConfig):
+    return p.embed if cfg.tie_embeddings else p.lm_head
 
 
 def lm_logits(p, x, cfg: ModelConfig):
-    w = p.embed if cfg.tie_embeddings else p.lm_head
-    return F.linear(x, w)
+    return F.linear(x, _cast(_head(p, cfg), x))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def chunked_lm_loss(p, x, labels, cfg: ModelConfig, *, chunk: int = 512):
+    """Mean cross-entropy over sequence chunks: each chunk's (B, chunk, V)
+    logits live only inside a ``checkpoint`` and are recomputed in the
+    backward, so the full (B, S, V) logits are never held (the JAX
+    package's ``@jax.checkpoint`` scan).  A sequence that is not a
+    multiple of ``chunk``, or not longer, takes the plain head."""
+    b, s, _ = x.shape
+    if s % chunk != 0 or s <= chunk:
+        return cross_entropy(lm_logits(p, x, cfg), labels)
+    w = _cast(_head(p, cfg), x)          # cast once, outside the chunks
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        n, c = checkpoint(_chunk_sums, x[:, i:i + chunk], w,
+                          labels[:, i:i + chunk], use_reentrant=False,
+                          preserve_rng_state=False)
+        nll, cnt = nll + n, cnt + c
+    return nll / torch.clamp_min(cnt, 1.0)
+
+
+def _chunk_sums(x, w, labels):
+    return _ce_sums(F.linear(x, w), labels)
+
+
+def _ce_sums(logits, labels, mask=None):
+    """(summed negative log-likelihood, count) in float32 over the valid
+    labels (``labels >= 0``, and ``mask`` where given).  The label's
+    log-probability is a gather, which equals the JAX package's masked sum
+    over the vocab (one nonzero term)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    valid = labels >= 0 if mask is None else mask & (labels >= 0)
+    valid_f = valid.float()
+    return ((lse - ll) * valid_f).sum(), valid_f.sum()
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean cross-entropy in float32; labels -100 (or ``mask`` 0) are
+    ignored."""
+    nll, cnt = _ce_sums(logits, labels, mask)
+    return nll / torch.clamp_min(cnt, 1.0)

@@ -21,12 +21,18 @@ step with MoE (the served type) runs under
 ``torch.cuda.set_sync_debug_mode("error")``; in float32 it takes its
 fallback, one product per group, which reads the offsets on the host.
 Rows must be 16-byte aligned (d_model and d_expert multiples of 8 in bf16,
-of 4 in float32).  The router and
+of 4 in float32).  PyTorch's autograd differentiates ``_grouped_mm``
+(``GroupedMmBackward0``): on the card in bf16 its backward is grouped
+products with no host read, so training needs no backward of its own
+here; the router's aux loss keeps its gradient.  The router and
 ``shared_gate`` stay float32 and are applied to float32 activations, as
 in the JAX package (hazard H10); the expert stacks and the shared expert
 are kept in the compute type.
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,23 +51,27 @@ def padded_experts(cfg: ModelConfig) -> int:
 
 class MoE(nn.Module):
     """``router`` (E_pad, d) float32; ``e_wi`` and ``e_wg`` (E_pad, d, f)
-    and ``e_wd`` (E_pad, f, d) in the compute type; with shared experts,
-    ``shared`` (a :class:`~repro_torch.models.layers.SwiGLU` of width
-    ``d_shared``) and ``shared_gate`` (1, d) float32."""
+    and ``e_wd`` (E_pad, f, d) in the compute type (or the ``master``
+    type, trainable); with shared experts, ``shared`` (a
+    :class:`~repro_torch.models.layers.SwiGLU` of width ``d_shared``) and
+    ``shared_gate`` (1, d) float32."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         e, d, f = padded_experts(cfg), cfg.d_model, cfg.d_expert
-        dt = layers.cdtype(cfg)
-        self.router = layers.param((e, d), torch.float32, device)
-        self.e_wi = layers.param((e, d, f), dt, device)
-        self.e_wg = layers.param((e, d, f), dt, device)
-        self.e_wd = layers.param((e, f, d), dt, device)
+        dt, grad = layers.wdtype(cfg, master), master is not None
+        new = functools.partial(layers.param, device=device,
+                                requires_grad=grad)
+        self.router = new((e, d), torch.float32)
+        self.e_wi = new((e, d, f), dt)
+        self.e_wg = new((e, d, f), dt)
+        self.e_wd = new((e, f, d), dt)
         self.shared = self.shared_gate = None
         if cfg.n_shared:
             self.shared = layers.SwiGLU(d, cfg.d_shared, dtype=dt,
-                                        device=device)
-            self.shared_gate = layers.param((1, d), torch.float32, device)
+                                        device=device, requires_grad=grad)
+            self.shared_gate = new((1, d), torch.float32)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The router N(0, 1/d); ``e_wi`` and ``e_wg`` N(0, 1/d) and
@@ -107,9 +117,10 @@ def moe_apply(p: MoE, x, cfg: ModelConfig):
     sizes = torch.zeros(e_pad, dtype=torch.int32, device=x.device).index_add_(
         0, flat, torch.ones_like(flat, dtype=torch.int32))
     offs = torch.cumsum(sizes, dim=0, dtype=torch.int32)
-    h = F.silu(torch._grouped_mm(xs, p.e_wg, offs=offs)) * torch._grouped_mm(
-        xs, p.e_wi, offs=offs)
-    ys = torch._grouped_mm(h, p.e_wd, offs=offs)             # (T·k, d)
+    dt = x.dtype
+    h = F.silu(torch._grouped_mm(xs, p.e_wg.to(dt), offs=offs)) * \
+        torch._grouped_mm(xs, p.e_wi.to(dt), offs=offs)
+    ys = torch._grouped_mm(h, p.e_wd.to(dt), offs=offs)      # (T·k, d)
     gates = gate_vals.reshape(-1)[order]
     out = torch.zeros((t, d), dtype=torch.float32, device=x.device).index_add_(
         0, token_of, ys.float() * gates[:, None]).to(x.dtype)

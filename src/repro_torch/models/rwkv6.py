@@ -17,7 +17,7 @@ stays float32 and the shift states are in the compute type.  Matrices are
 kept in ``F.linear``'s (out, in) layout and in the compute type; the LoRA
 matrices of the decay, every vector and the norms' gains stay float32, as
 the JAX package reads its float32 masters there.  ``loss_fn`` waits for
-training (ROADMAP queue 1, item 14, slice 3).
+training (ROADMAP queue 1, item 14, slice 3b).
 """
 from __future__ import annotations
 

@@ -1,20 +1,26 @@
 """Decoder-only transformer LM, dense and MoE families: ``init``,
-``prefill`` and ``decode_step``, in the names of the JAX package's
-``models/transformer.py``.
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step``, in the names of
+the JAX package's ``models/transformer.py``.
 
 The JAX package scans over stacked layer parameters; here each layer is a
 :class:`Block` module in a ``ModuleList`` and the layer loop is a Python
 loop.  The KV cache keeps the stacked (L, B, Hkv, S, hd) layout and is
 written in place.  The moe family (Qwen2-MoE, Qwen3-MoE) runs here too: a
 layer holds a :class:`~repro_torch.models.moe.MoE` in place of its dense
-MLP when ``cfg.n_experts > 0``.  ``forward`` and ``loss_fn`` wait for
-training, and the VLM branch for the VLM frontend (ROADMAP queue 1, item
-14).
+MLP when ``cfg.n_experts > 0``.  A model made with ``master=torch.float32``
+trains: float32 masters that require grad, cast to the compute type at
+each use.  ``REMAT_POLICIES`` name what a layer's checkpoint keeps, as
+the JAX package's ``jax.checkpoint`` policies do.  The VLM branch waits
+for the VLM frontend (ROADMAP queue 1, item 14, slice 4).
 """
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
@@ -22,6 +28,17 @@ from repro_torch.models.layers import KVCache
 
 
 FAMILIES = ("dense", "moe")
+_aten = torch.ops.aten
+# remat -> None (no checkpoint), () (a checkpoint that keeps nothing: the
+# layer's forward reruns in the backward) or the ops whose outputs a
+# selective checkpoint keeps: the matrix products (JAX's ``checkpoint_dots``)
+# or those without batch dims (``checkpoint_dots_with_no_batch_dims``).
+REMAT_POLICIES = {
+    "none": None,
+    "full": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -30,28 +47,35 @@ def _is_moe(cfg: ModelConfig) -> bool:
 
 class Block(nn.Module):
     """One pre-norm layer: ``ln1``, ``attn``, ``ln2``, and ``mlp`` (a dense
-    SwiGLU) or, for an MoE config, ``moe``."""
+    SwiGLU) or, for an MoE config, ``moe``; trainable float32 masters when
+    ``master`` is given."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = layers.param((cfg.d_model,), torch.float32, device, 1.0)
-        self.ln2 = layers.param((cfg.d_model,), torch.float32, device, 1.0)
-        self.attn = layers.Attention(cfg, device)
+        grad = master is not None
+        self.ln1 = layers.param((cfg.d_model,), torch.float32, device, 1.0,
+                                requires_grad=grad)
+        self.ln2 = layers.param((cfg.d_model,), torch.float32, device, 1.0,
+                                requires_grad=grad)
+        self.attn = layers.Attention(cfg, device, master)
         if _is_moe(cfg):
-            self.moe = moe.MoE(cfg, device)
+            self.moe = moe.MoE(cfg, device, master)
         else:
             self.mlp = layers.SwiGLU(cfg.d_model, cfg.d_ff,
-                                     dtype=layers.cdtype(cfg), device=device)
+                                     dtype=layers.wdtype(cfg, master),
+                                     device=device, requires_grad=grad)
 
     def _mlp(self, x):
+        """The MLP half with its residual: (x + y, the router's aux loss,
+        float32, or None for a dense MLP)."""
         cfg = self.cfg
         h = layers.rmsnorm(x, self.ln2, cfg.norm_eps)
         if _is_moe(cfg):
-            y, _ = moe.moe_apply(self.moe, h, cfg)
-        else:
-            y = layers.swiglu_apply(self.mlp, h)
-        return x + y
+            y, aux = moe.moe_apply(self.moe, h, cfg)
+            return x + y, aux
+        return x + layers.swiglu_apply(self.mlp, h), None
 
     def forward(self, x, positions):
         """Prefill: x (B, S, d_model) -> (x, (k, v)), k and v (B, Hkv, S, hd)."""
@@ -59,7 +83,16 @@ class Block(nn.Module):
         h = layers.rmsnorm(x, self.ln1, cfg.norm_eps)
         a, kv = layers.attn_apply(self.attn, h, cfg, positions=positions,
                                   return_kv=True)
-        return self._mlp(x + a), kv
+        return self._mlp(x + a)[0], kv
+
+    def train_forward(self, x, positions):
+        """Training: x (B, S, d_model) -> (x, aux); the attention keeps its
+        gradient (``attn_ops.attention``'s autograd Function)."""
+        h = layers.rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        x = x + layers.attn_apply(self.attn, h, self.cfg, positions=positions)
+        x, aux = self._mlp(x)
+        return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+                   if aux is None else aux)
 
     def decode(self, x, ks, vs, layer: int, index: int):
         """One token: x (B, 1, d_model); writes the cache at (layer, index)."""
@@ -67,40 +100,89 @@ class Block(nn.Module):
         h = layers.rmsnorm(x, self.ln1, cfg.norm_eps)
         a, _, _ = layers.attn_decode_stacked(self.attn, h, cfg, ks, vs,
                                              layer, index)
-        return self._mlp(x + a)
+        return self._mlp(x + a)[0]
 
 
 class Transformer(nn.Module):
     """The dense or MoE LM: ``embed``, ``lm_head`` (None when tied),
     ``layers`` and ``final_norm``; parameters uninitialized until
-    :func:`init` or ``convert.from_reference`` fills them."""
+    :func:`init` or ``convert.from_reference`` fills them.  ``master``
+    None serves (matrices in the compute type, no grad); a dtype
+    (float32) trains (masters of that type, every parameter requiring
+    grad)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the transformer serves the dense and moe "
                 f"families, not {cfg.family} (ROADMAP queue 1, item 14)")
         self.cfg = cfg
-        dt = layers.cdtype(cfg)
-        self.embed = layers.param((cfg.vocab, cfg.d_model), dt, device)
+        dt = layers.wdtype(cfg, master)
+        new = functools.partial(layers.param, device=device,
+                                requires_grad=master is not None)
+        self.embed = new((cfg.vocab, cfg.d_model), dt)
         self.lm_head = (None if cfg.tie_embeddings else
-                        layers.param((cfg.vocab, cfg.d_model), dt, device))
-        self.final_norm = layers.param((cfg.d_model,), torch.float32, device,
-                                       1.0)
-        self.layers = nn.ModuleList(Block(cfg, device)
+                        new((cfg.vocab, cfg.d_model), dt))
+        self.final_norm = new((cfg.d_model,), torch.float32, fill=1.0)
+        self.layers = nn.ModuleList(Block(cfg, device, master)
                                     for _ in range(cfg.n_layers))
 
 
-def init(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
-    """Random weights from ``generator``, on its device."""
-    model = Transformer(cfg, device=generator.device)
-    for blk in model.layers:
-        blk.attn.reset_parameters(generator)
-        (blk.moe if _is_moe(cfg) else blk.mlp).reset_parameters(generator)
-    for name, t in layers.embed_init(generator, cfg).items():
-        getattr(model, name).copy_(t)
+def init(generator: torch.Generator, cfg: ModelConfig,
+         master: Optional[torch.dtype] = None) -> Transformer:
+    """Random weights from ``generator``, on its device; trainable float32
+    masters when ``master`` is ``torch.float32``."""
+    model = Transformer(cfg, device=generator.device, master=master)
+    with torch.no_grad():
+        for blk in model.layers:
+            blk.attn.reset_parameters(generator)
+            (blk.moe if _is_moe(cfg) else blk.mlp).reset_parameters(generator)
+        for name, t in layers.embed_init(generator, cfg).items():
+            getattr(model, name).copy_(t)
     return model
+
+
+def _layer_fn(remat: str):
+    """The layer call under ``remat``: ``Block.train_forward`` itself, or
+    it under a checkpoint that keeps nothing (``full``) or the outputs of
+    the matrix products (``dots``, ``dots_no_batch``).  Any recomputed
+    forward reruns the attention kernel."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; options: "
+                         f"{sorted(REMAT_POLICIES)}")
+    keep = REMAT_POLICIES[remat]
+    if keep is None:
+        return lambda blk, x, pos: blk.train_forward(x, pos)
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if keep:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, list(keep))
+    return lambda blk, x, pos: ckpt.checkpoint(blk.train_forward, x, pos,
+                                               **kw)
+
+
+def forward(params: Transformer, tokens, cfg: ModelConfig, *,
+            remat: str = "none"):
+    """The final hidden states (B, S, d_model), after the final norm, and
+    the layers' summed aux loss (float32; 0 for a dense model)."""
+    layer = _layer_fn(remat)
+    x = layers.embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.layers:
+        x, a = layer(blk, x, positions)
+        aux = aux + a
+    return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
+
+
+def loss_fn(params: Transformer, batch, cfg: ModelConfig, *,
+            remat: str = "none"):
+    """The chunked LM loss plus the aux loss, a float32 scalar.  ``batch``:
+    ``tokens`` and ``labels`` (B, S) int, labels -100 ignored."""
+    x, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    return layers.chunked_lm_loss(params, x, batch["labels"], cfg) + aux
 
 
 def prefill(params: Transformer, tokens, cfg: ModelConfig, *, max_len: int):

@@ -25,8 +25,16 @@ function here computes what the JAX package's collective computes under
 model of one exchange, per shard.  Values are compared in the port's
 flipped form (``core/keys.py``), whose signed order is the reference's
 unsigned order.
+
+:func:`compress_tree` is the training step's bf16 gradient compression
+with error feedback.  The reference's ``latency_hiding_flags`` (XLA
+scheduler flags) have no counterpart on one card; overlapping the
+gradients' exchange with the backward comes with shards on several cards
+(ROADMAP queue 1, item 13b).
 """
 from __future__ import annotations
+
+from typing import Mapping, Optional
 
 import torch
 
@@ -122,3 +130,19 @@ def dense_bytes(n: int, num_shards: int, value_bytes: int) -> int:
     if num_shards <= 1:
         return 0
     return int(2 * (num_shards - 1) * n * value_bytes // num_shards)
+
+
+def compress_tree(grads: Mapping[str, torch.Tensor],
+                  residual: Optional[Mapping[str, torch.Tensor]]):
+    """bf16 compression with error feedback: each gradient plus its float32
+    residual (zeros when ``residual`` is None), rounded to bf16 (to nearest
+    even, as ``astype`` rounds), and what the rounding dropped as the next
+    residual.  Returns ``(compressed, residual)``, two dicts of
+    ``grads``' keys."""
+    comp, res = {}, {}
+    for name, g in grads.items():
+        # + 0.0 as the reference adds its zeros: -0.0 becomes +0.0
+        gf = g.float() + (0.0 if residual is None else residual[name])
+        comp[name] = gf.to(torch.bfloat16)
+        res[name] = gf - comp[name].float()
+    return comp, res

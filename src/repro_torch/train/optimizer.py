@@ -1,0 +1,94 @@
+"""AdamW with global-norm clipping, in the names of the JAX package's
+``train/optimizer.py``.
+
+The functions take the parameters, gradients and moments as mappings from
+a parameter's name to its tensor (``named_parameters()`` order).  The
+moments and the step counter live on the parameters' device, and the
+clipping scale, the learning-rate schedule and the bias corrections are
+device tensors, so an update reads nothing on the host.  The update writes
+the float32 masters and the moments in place (the JAX package returns new
+ones), with one multi-tensor operation a stage (``torch._foreach_*``) in
+the reference's order of operations.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    # bf16 gradient compression with error feedback, the residual kept in
+    # the train state (sharding/collectives.py compress_tree)
+    compress_grads: bool = False
+
+
+def init(params: Mapping[str, torch.Tensor]) -> dict:
+    """Zero moments ``m`` and ``v`` of each parameter's shape and type, and
+    ``step``, an int32 scalar, all on the parameters' device."""
+    device = next(iter(params.values())).device
+    return dict(m={n: torch.zeros_like(p) for n, p in params.items()},
+                v={n: torch.zeros_like(p) for n, p in params.items()},
+                step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up to ``cfg.lr``, a float32 device scalar."""
+    warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """The L2 norm of all the tensors together, in float32."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@torch.no_grad()
+def update(grads: Mapping[str, torch.Tensor], state: dict,
+           params: Mapping[str, torch.Tensor], cfg: AdamWConfig):
+    """One AdamW step: clip ``grads`` to ``cfg.clip_norm`` by their global
+    norm, update the moments and the parameters in place.  Returns
+    ``(params, state, metrics)`` as the JAX package does; ``metrics``
+    holds ``grad_norm`` and ``lr``, device scalars."""
+    names = list(params)
+    p = [params[n] for n in names]
+    g = [grads[n].float() for n in names]
+    m = [state["m"][n] for n in names]
+    v = [state["v"][n] for n in names]
+    state["step"] += 1
+    step = state["step"].float()
+    gnorm = global_norm(g)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
+                        max=1.0)
+    lr = _schedule(cfg, state["step"])
+    b1c = 1.0 - torch.pow(cfg.b1, step)
+    b2c = 1.0 - torch.pow(cfg.b2, step)
+
+    g = torch._foreach_mul(g, scale)                # the clipped gradient
+    torch._foreach_mul_(m, cfg.b1)
+    torch._foreach_add_(m, g, alpha=1 - cfg.b1)
+    torch._foreach_mul_(g, g)
+    torch._foreach_mul_(v, cfg.b2)
+    torch._foreach_add_(v, g, alpha=1 - cfg.b2)
+    den = g                                          # g is dead: reuse it
+    torch._foreach_copy_(den, v)
+    torch._foreach_div_(den, b2c)                   # v̂
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, cfg.eps)
+    delta = torch._foreach_div(m, b1c)              # m̂
+    torch._foreach_div_(delta, den)
+    del g, den
+    torch._foreach_add_(delta, p, alpha=cfg.weight_decay)
+    torch._foreach_mul_(delta, lr)
+    torch._foreach_sub_(p, delta)
+    return params, state, dict(grad_norm=gnorm, lr=lr)

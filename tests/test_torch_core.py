@@ -289,6 +289,13 @@ def test_port_imports_neither_jax_nor_repro():
         "    res, _ = mst_api.minimum_spanning_forest(\n"
         "        g, method=method, mesh=Mesh(2, 'cpu'))\n"
         "    assert (res.edge_mask == kruskal_ref.kruskal(g).edge_mask).all()\n"
+        "from repro_torch.launch import train\n"
+        "from repro_torch.checkpoint import ckpt\n"
+        "from repro_torch.data import tokens\n"
+        "from repro_torch.kernels.flash_attention import backward\n"
+        "st = train.main(['--smoke', '--device', 'cpu', '--steps', '2',\n"
+        "                 '--batch', '2', '--seq', '16', '--remat', 'full'])\n"
+        "assert int(st['opt']['step']) == 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
