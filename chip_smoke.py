@@ -91,8 +91,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       solve's;
 5d. the MST service (``launch/serve.py``), on the card:
    a. the JAX package's serving settings (8 lanes, 50 ms, 64 queued, 256
-      vertices, 1,024 edges): ``warmup`` timed, then 160 graphs (its serving
-      workload: rmat scales 2 to 8, degree 8, every 16th at 32 and shed)
+      vertices, 1,024 edges): ``warmup`` timed, then 80 graphs (the first
+      half of its serving workload: rmat scales 2 to 8, degree 8, every 16th
+      at 32 and shed)
       offered by ``run_poisson`` at 5, 15 and 40 graphs/s; p50, p99 and mean
       latency, graphs/s, flushes by trigger, ghost lanes and sheds; every
       served forest equal to Kruskal's and to its batched solve;
@@ -122,7 +123,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       collectives (``pmin``, the compressed exchange), the block and hashed
       partitioners, ``use_pallas=True``, ``check_frequency=2``: each
       forest equal to the numpy oracle and to phase 3's one-shard forest;
-      the median wall of three (one run under ``hashed``), rounds,
+      the median wall of two (one run under ``hashed``), rounds,
       intervals, host syncs, comm bytes, the collective each interval ran,
       and the K1, K2 and K3 launches of each run counted from 0;
    b. ``method="ghs"`` at S = 4 on 5e's rmat-16 (910,144 edges) under the
@@ -153,7 +154,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       (HMMA or HGMMA); decode attention's instances at head dims 64, 96
       and 128, its split plan and rate (bytes over time) at its three
       shapes, and its wrapper's host time a call;
-   b. ``serve_lm.main`` at batch 8, prompt 1024 and 512 generated tokens,
+   b. ``serve_lm.main`` at batch 8, prompt 1024 and 256 generated tokens,
       its decode loop under sync debug mode "error", with the kernels'
       launch counts checked (one flash attention per layer, one decode
       attention per layer and step) and every logit finite; then
@@ -201,7 +202,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    c. Jamba's superblock at a quarter of its width and two layers of
       Qwen2-MoE at its full width, float32, card against CPU as in 6c,
       Jamba's prefill SSM state error reported;
-9. training of the transformer families (``launch/train.py``):
+9. training (``launch/train.py``), the transformer families, then RWKV6
+   and Jamba:
    a. the attention Function of the training path (K6 forward, the
       explicit backward of ``kernels/flash_attention/backward.py``) against
       autograd through the plain version, at Qwen1.5-0.5B's layer
@@ -222,6 +224,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    d. Qwen2-MoE-A2.7B at full width, depth cut to two layers, bf16: a
       nonzero router gradient, three train steps with a finite loss, and
       the host syncs of steps 2 and 3 reported;
+   e. ``launch.train.main`` on RWKV6-3B at its full config (bf16 compute,
+      float32 masters, AdamW), remat ``full``, batch 8, seq 1024, six
+      steps as in (b): K9 launched 32 times a step in the forward and 32
+      in the recompute, the loss finite and falling, steps 2-5 under sync
+      debug mode "error"; the median step, tokens/s, peak memory, the
+      device's busy share, ``mfu`` against 6·N a token, and step 6's device
+      time by kind, the WKV backward's share of the step named (its time
+      a layer from (h), times 32);
+   f. Jamba at full width over one superblock, its served layout (bf16
+      matrices, float32 leaves) made trainable: forward and backward under
+      remat ``full``, batch 2, seq 1024, timed; K8 7 (+7) and K6 1 (+1),
+      the loss and every gradient finite, every expert that received
+      tokens with a nonzero gradient; peak memory;
+   g. RWKV6-3B at two layers of full width and Jamba's superblock at a
+      quarter width, float32, batch 2, seq 128, card against CPU as in
+      (c); then three AdamW steps of that Jamba (bf16 compute, float32
+      masters, remat ``full``, batch 2, seq 1024), the loss falling;
+   h. the WKV6 and SelectiveScan autograd Functions (K9, K8 forward, the
+      explicit backwards) against autograd through the plain versions at
+      (e)'s and (f)'s shapes and types, within the tolerances of (a); each
+      backward's time a layer beside the kernel's forward, the plain
+      version's forward plus backward and a bound;
 10. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -255,7 +279,7 @@ MISS_SHIFT = 7919               # receiver shift of the lookup's miss queries
 PIPE_SCALE = 20                 # rmat built on the card (general path)
 PIPE_KIND_SCALES = (17, 18)     # every kind: the narrow path's last scale,
                                 # the general path's first
-PIPE_RUNS = 5
+PIPE_RUNS = 3                   # 5 before the script grew
 PIPE_SAMPLE_RATE = 0.1
 CORPUS_GRAPHS = 256             # the batched corpus: rmat, degree 32,
 CORPUS_SCALES = (8, 9, 10, 11, 12)  # seed i at scale CORPUS_SCALES[i % 5]
@@ -268,7 +292,7 @@ SERVE_KNOBS = dict(serve_lanes=8, serve_max_wait_ms=50.0,  # the JAX
                    serve_max_queue=64, batch_max_vertices=256,  # package's
                    batch_max_edges=1024)      # serving settings
 SERVE_RATES = (5.0, 15.0, 40.0)  # offered graphs/s
-SERVE_REQUESTS = 160
+SERVE_REQUESTS = 80              # the first 80 of its workload's 160
 CORPUS_SERVE_KNOBS = dict(SERVE_KNOBS, batch_max_vertices=4096,
                           batch_max_edges=65536, use_pallas=True)
 CORPUS_SERVE_RATES = (200.0, 800.0)  # the corpus of phase 5b, offered
@@ -279,7 +303,7 @@ GHS_SCALE = 10                  # every knob of the GHS engine
 GHS_KERNEL_SCALE = 8            # the interval kernel against its plain version
 GHS_BIG_SCALE = 16              # rmat-17 (28 s) cut to 16 for phase 5f's time
 MESH_SHARDS = (2, 4, 8)         # Borůvka over S shards on the card (5f)
-MESH_RUNS = 3                   # block partitions; hashed: one (host layout)
+MESH_RUNS = 2                   # block partitions; hashed: one (host layout)
 MESH_CHECK_FREQUENCY = 2        # the compressed exchange carries late intervals
 GHS_MESH_SHARDS = 4             # GHS over S shards on GHS_BIG_SCALE (5f)
 GHS_MESH_KERNEL_SHARDS = (2, 4)  # the S-block kernel against its plain version
@@ -294,12 +318,12 @@ GHS_MESH_SETTINGS = {           # (partitioner, the paper's optimizations)
 }
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 LM_ARCH = "qwen1.5-0.5b"        # the served model, full config, bf16
-LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 512
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 256   # 512 before the script grew
 LM_SEED = 0
 GQA_ARCH = "qwen2.5-14b"        # full width, depth cut to GQA_LAYERS
 GQA_LAYERS, GQA_BATCH, GQA_GEN = 8, 4, 32
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 2, 128, 8
-PROFILE_DECODE_STEPS = 32
+PROFILE_DECODE_STEPS = 8        # 32 before: a window's parse took 60 s
 PHI3_ARCH = "phi3-mini-3.8b"    # head dim 96 (24 in its smoke config)
 PHI3_GEN = 32
 RWKV_ARCH = "rwkv6-3b"          # full config, bf16: K9 in every prefill layer
@@ -346,6 +370,13 @@ TRAIN_REMATS = {"none": 1, "full": 2}
 TRAIN_SYNC_FREE = (2, 5)        # first and last step under "error"
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
 TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 2, 3
+# Phases 9e-9h, training of the recurrent families at TRAIN_SEQ: RWKV6-3B
+# at its full config (float32 masters, gradients and two moments: 49.2 GB)
+# at batch 8 under remat "full"; Jamba's superblock at full width, forward
+# and backward only, batch 2 (its served bf16 weights and their gradients:
+# 53.2 GB).
+RWKV_TRAIN_BATCH = 8
+JAMBA_TRAIN_BATCH, TRAIN_JAMBA_RUNS, TRAIN_JAMBA_STEPS = 2, 2, 3
 # The attention Function (K6 forward, explicit backward) against autograd
 # through the plain version on the card, each gradient: float32 within
 # 1e-4 of its largest |g| (both in float32, sums in another order); bf16
@@ -367,8 +398,12 @@ SCAN_F32_TOL = 1e-4
 SCAN_BF16_REL = 2.0 ** -6
 
 
+_T0 = time.perf_counter()
+
+
 def _log(*parts) -> None:
-    print(*parts, flush=True)
+    """One line of the run's log, stamped with the seconds since start."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *parts, flush=True)
 
 
 def _card_line() -> str:
@@ -2898,7 +2933,10 @@ def phase_train_attention(torch, dev, record) -> list:
 # (category, substrings of a device op's name), the first match wins
 TRAIN_OP_KINDS = (
     ("K6", ("flash_kernel",)),
+    ("K9", ("wkv6_kernel",)),
+    ("K8", ("scan_kernel",)),
     ("AdamW (multi-tensor)", ("multi_tensor_apply",)),
+    ("recurrence steps (addcmul)", ("addcmul",)),
     ("float32 GEMM", ("f32f32", "sgemm")),
     ("bf16 GEMM", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("softmax", ("softmax",)),
@@ -2909,20 +2947,26 @@ TRAIN_OP_KINDS = (
 )
 
 
-def _device_breakdown(prof) -> dict:
-    """Device time (ms) and op count of a profiler window by
-    ``TRAIN_OP_KINDS``; the rest under "other"."""
+def _device_breakdown(prof) -> tuple[dict, dict]:
+    """Device time (ms) and op count of a finished profiler window by
+    ``TRAIN_OP_KINDS`` (the rest under "other") and by name, read from the
+    profiler's raw events: a window of 130 k kernels (an RWKV6-3B step) is
+    read in seconds, where ``key_averages`` builds an object an event."""
     from torch.autograd import DeviceType
-    out = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+    names = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
+        ms, n = names.get(e.name(), (0.0, 0))
+        names[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    kinds = {}
+    for name, (ms, n) in names.items():
         kind = next((k for k, subs in TRAIN_OP_KINDS
-                     if any(x in e.key for x in subs)), "other")
-        ms, n = out.get(kind, (0.0, 0))
-        out[kind] = (ms + getattr(e, "device_time_total", 0) / 1e3,
-                     n + e.count)
-    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+                     if any(x in name for x in subs)), "other")
+        k_ms, k_n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (k_ms + ms, k_n + n)
+    return (dict(sorted(kinds.items(), key=lambda kv: -kv[1][0])),
+            dict(sorted(names.items(), key=lambda kv: -kv[1][0])))
 
 
 def _token_window(np, path: Path, n: int, vocab: int) -> None:
@@ -2933,139 +2977,168 @@ def _token_window(np, path: Path, n: int, vocab: int) -> None:
     (rng.zipf(1.3, n) % min(vocab, 65536)).astype(np.uint16).tofile(path)
 
 
-def phase_train_run(torch, record) -> dict:
-    """Phase 9b: ``launch.train.main`` on Qwen1.5-0.5B at its full config,
-    batch 8, seq 1024, six steps on a repeated batch (warm-up of one step)
-    under remat ``none`` and ``full``: steps 2-5 under sync debug mode
-    "error", the loss finite and falling, K6 launched once a layer a step
-    (twice under ``full``); the median step (CUDA events between the step
-    ends of steps 2-5), tokens/s, peak memory, one profiler window over
-    step 6 and ``mfu`` against the step's bound.  Returns K6's launches a
-    step under each remat."""
+def _train_main_run(torch, arch, remat, batch, kernel, per_step, flops,
+                    flops_note, kernel_names, table) -> dict:
+    """One ``launch.train.main`` run of ``arch`` at its full config, batch
+    ``batch``, seq TRAIN_SEQ, TRAIN_STEPS steps on a repeated batch (a
+    warm-up of one step) under ``remat``: steps 2-5 under sync debug mode
+    "error", the loss finite and falling, the kernel ``kernel`` launched
+    ``per_step`` times a step; the median step (CUDA events between the
+    step ends of steps 2-5), tokens/s, peak memory, one profiler window
+    over step 6 broken down by ``TRAIN_OP_KINDS`` (and the profiler's
+    table written to ``table``, if named),
+    and ``mfu``: ``flops(n_params)`` a step at 989 TFLOP/s over the
+    median step (``flops_note`` states the formula)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_launch
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     OUT_DIR.mkdir(exist_ok=True)
-    path = OUT_DIR / "train_tokens.bin"
-    _token_window(np, path, TRAIN_BATCH * (TRAIN_SEQ + 1) + 1, cfg.vocab)
+    path = OUT_DIR / f"train_tokens_{batch}.bin"
+    _token_window(np, path, batch * (TRAIN_SEQ + 1) + 1, cfg.vocab)
     first, last = TRAIN_SYNC_FREE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, ends, counts, prof = [], [], [], {}
+
+    def on_step(step, state, metrics):
+        losses.append(metrics["loss"])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        counts.append(kernels.LAUNCHES[kernel])
+        if step == first - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        elif step == last:
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        elif step == last + 1:
+            torch.cuda.synchronize()
+            prof["window"] = time.perf_counter() - prof["t0"]
+            prof["p"].stop()
+
+    t0 = time.perf_counter()
+    try:
+        state = train_launch.main(
+            ["--arch", arch, "--batch", str(batch), "--seq", str(TRAIN_SEQ),
+             "--steps", str(TRAIN_STEPS), "--warmup-steps", "1", "--remat",
+             remat, "--data", "file", "--data-path", str(path),
+             "--log-every", str(TRAIN_STEPS), "--seed", str(LM_SEED)],
+            on_step=on_step)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    del state
+    vals = [float(x) for x in losses]
+    steps_k = [b - a for a, b in zip([0] + counts[:-1], counts)]
+    if not all(math.isfinite(x) for x in vals) or vals[-1] >= vals[0]:
+        raise AssertionError(f"train {arch} remat={remat}: losses {vals}")
+    if set(steps_k) != {per_step}:
+        raise AssertionError(f"train {arch} remat={remat}: {kernel} "
+                             f"launches a step {steps_k}, expected "
+                             f"{per_step}")
+    step_ms = [ends[i - 1].elapsed_time(ends[i])
+               for i in range(first - 1, last)]
+    median_ms = statistics.median(step_ms)
+    tokens = batch * TRAIN_SEQ
+    step_flops = flops(n_params) * tokens
+    bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+    kinds, names = _device_breakdown(prof["p"])
+    busy_ms = sum(ms for ms, _ in kinds.values())
+    window = dict(device_busy_ms=busy_ms,
+                  idle_share=1.0 - busy_ms / (prof["window"] * 1e3),
+                  counts={c: sum(n for name, (_, n) in names.items()
+                                 if c in name) for c in kernel_names})
+    if table:           # the profiler's own table, for a window of few ops
+        _profile_summary(prof["p"], prof["window"],
+                         f"train {arch} step {last + 1}, remat={remat}",
+                         table, kernel_names=kernel_names)
+    for name, (ms, n) in list(names.items())[:8]:
+        _log(f"  train {arch} step {last + 1} ({remat}) device op "
+             f"{name[:70]!r}: {ms:.3f} ms x{n}")
+    for kind, (ms, n) in kinds.items():
+        _log(f"  train {arch} step {last + 1} ({remat}) device time: {kind} "
+             f"{ms:.3f} ms over {n} ops")
+    out = dict(
+        losses=vals, step_ms=step_ms, median_step_ms=median_ms,
+        tokens_per_s=tokens / (median_ms / 1e3), peak_gib=peak,
+        launches_per_step=steps_k, params=n_params, step_flops=step_flops,
+        bound_ms=bound_ms, mfu=bound_ms / median_ms, wall_s=wall,
+        idle_share=window["idle_share"],
+        device_busy_ms=window["device_busy_ms"],
+        busy_over_median_step=window["device_busy_ms"] / median_ms,
+        profile_kernels=window["counts"], device_ms_by_kind=kinds)
+    _log(f"train {arch} remat={remat}: batch {batch} seq {TRAIN_SEQ}, "
+         f"{n_params} parameters, losses {[round(x, 4) for x in vals]}; "
+         f"steps {first}-{last} under sync debug mode 'error'; step ms "
+         f"{[round(x, 3) for x in step_ms]}, median {median_ms:.3f} ms, "
+         f"{tokens / median_ms * 1e3:.1f} tok/s, peak {peak:.2f} GiB; "
+         f"{kernel} a step {steps_k}; bound {bound_ms:.3f} ms "
+         f"({step_flops / tokens / 1e9:.4f} GFLOP a token, {flops_note}, at "
+         f"989 TFLOP/s), mfu {bound_ms / median_ms:.4f}; step {last + 1}'s "
+         f"device busy time over the median step "
+         f"{window['device_busy_ms'] / median_ms:.4f} (its profiled "
+         f"window's idle share {window['idle_share']} counts the "
+         f"profiler's host overhead); wall {wall:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_run(torch, record) -> dict:
+    """Phase 9b: ``launch.train.main`` on Qwen1.5-0.5B at its full config,
+    batch 8, seq 1024, six steps on a repeated batch (``_train_main_run``)
+    under remat ``none`` and ``full``: K6 launched once a layer a step
+    (twice under ``full``); ``mfu`` against 6·N (every parameter's forward
+    and backward, the tied head included) plus the attention's 12·L·d·S a
+    token.  Returns K6's launches a step under each remat."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
     out, per_step = {}, {}
     for remat, per_layer in TRAIN_REMATS.items():
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        losses, ends, k6, prof = [], [], [], {}
-
-        def on_step(step, state, metrics):
-            losses.append(metrics["loss"])
-            ends.append(torch.cuda.Event(enable_timing=True))
-            ends[-1].record()
-            k6.append(kernels.LAUNCHES["flash_attention"])
-            if step == first - 1:
-                torch.cuda.set_sync_debug_mode("error")
-            elif step == last:
-                torch.cuda.set_sync_debug_mode(0)
-                torch.cuda.synchronize()
-                prof["p"] = profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA])
-                prof["p"].start()
-                prof["t0"] = time.perf_counter()
-            elif step == last + 1:
-                torch.cuda.synchronize()
-                prof["window"] = time.perf_counter() - prof["t0"]
-                prof["p"].stop()
-
-        t0 = time.perf_counter()
-        try:
-            state = train_launch.main(
-                ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
-                 str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
-                 "--warmup-steps", "1", "--remat", remat, "--data", "file",
-                 "--data-path", str(path), "--log-every", str(TRAIN_STEPS),
-                 "--seed", str(LM_SEED)], on_step=on_step)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        n_params = sum(p.numel() for p in state["params"].parameters())
-        del state
-        vals = [float(x) for x in losses]
-        steps_k6 = [b - a for a, b in zip([0] + k6[:-1], k6)]
-        if not all(math.isfinite(x) for x in vals) or vals[-1] >= vals[0]:
-            raise AssertionError(f"train remat={remat}: losses {vals}")
-        if set(steps_k6) != {per_layer * cfg.n_layers}:
-            raise AssertionError(f"train remat={remat}: K6 launches a step "
-                                 f"{steps_k6}, expected "
-                                 f"{per_layer * cfg.n_layers}")
-        step_ms = [ends[i - 1].elapsed_time(ends[i])
-                   for i in range(first - 1, last)]
-        median_ms = statistics.median(step_ms)
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        # 6·N (forward and backward of every parameter, the tied head
-        # included) plus the attention's 12·L·d·S a token
-        flops = tokens * (6 * n_params
-                          + 12 * cfg.n_layers * cfg.q_dim * TRAIN_SEQ)
-        bound_ms = flops / BF16_OPS_PER_S * 1e3
-        window = _profile_summary(prof["p"], prof["window"],
-                                  f"train step {last + 1}, remat={remat}",
-                                  f"chip_smoke_profile_train_{remat}.txt",
-                                  kernel_names=("flash_kernel",))
-        kinds = _device_breakdown(prof["p"])
-        for kind, (ms, n) in kinds.items():
-            _log(f"  train step {last + 1} ({remat}) device time: {kind} "
-                 f"{ms:.3f} ms over {n} ops")
-        out[remat] = dict(
-            losses=vals, step_ms=step_ms, median_step_ms=median_ms,
-            tokens_per_s=tokens / (median_ms / 1e3), peak_gib=peak,
-            k6_per_step=steps_k6, params=n_params, step_flops=flops,
-            bound_ms=bound_ms, mfu=bound_ms / median_ms, wall_s=wall,
-            idle_share=window["idle_share"],
-            device_busy_ms=window["device_busy_ms"],
-            busy_over_median_step=window["device_busy_ms"] / median_ms,
-            profile_k6=window["counts"], device_ms_by_kind=kinds)
-        per_step[remat] = steps_k6[0]
-        _log(f"train {TRAIN_ARCH} remat={remat}: batch {TRAIN_BATCH} seq "
-             f"{TRAIN_SEQ}, {n_params} parameters, losses "
-             f"{[round(x, 4) for x in vals]}; steps {first}-{last} under "
-             f"sync debug mode 'error'; step ms {[round(x, 3) for x in step_ms]}"
-             f", median {median_ms:.3f} ms, {tokens / median_ms * 1e3:.1f} "
-             f"tok/s, peak {peak:.2f} GiB; K6 a step {steps_k6}; bound "
-             f"{bound_ms:.3f} ms ({flops / tokens / 1e9:.4f} GFLOP a token "
-             f"at 989 TFLOP/s), mfu {bound_ms / median_ms:.4f}; step "
-             f"{last + 1}'s device busy time over the median step "
-             f"{window['device_busy_ms'] / median_ms:.4f} (its profiled "
-             f"window's idle share {window['idle_share']} counts the "
-             f"profiler's host overhead); wall {wall:.1f} s")
-        torch.cuda.empty_cache()
+        out[remat] = _train_main_run(
+            torch, TRAIN_ARCH, remat, TRAIN_BATCH, "flash_attention",
+            per_layer * cfg.n_layers,
+            lambda n: 6 * n + 12 * cfg.n_layers * cfg.q_dim * TRAIN_SEQ,
+            "6·N + 12·L·d·S", ("flash_kernel",),
+            f"chip_smoke_profile_train_{remat}.txt")
+        per_step[remat] = out[remat]["launches_per_step"][0]
     record.setdefault("train", {})["run"] = out
     return per_step
 
 
-def phase_train_parity(torch, dev, record) -> None:
-    """Phase 9c: two layers at Qwen1.5-0.5B's width in float32, batch 2,
-    seq 128, from the same weights on the card (K6, the explicit backward)
+def _train_parity(torch, dev, arch, want_launches, **overrides) -> dict:
+    """``arch``'s width at PARITY_LAYERS layers (``overrides`` replace
+    fields of that config) in float32, batch 2, seq 128, from the same
+    weights on the card (the kernels, their Functions' explicit backwards)
     and on the CPU (the plain versions): the loss, the gradient norm and
-    every gradient within the tolerances above; K6 once a layer."""
+    every gradient within the tolerances above, and the card's launches
+    ``want_launches``.  Returns the errors."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.models import api, transformer
+    from repro_torch.models import api
     from repro_torch.train import optimizer as opt
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              n_layers=PARITY_LAYERS, compute_dtype="float32")
-    card = transformer.init(torch.Generator(device=dev).manual_seed(LM_SEED),
-                            cfg, master=torch.float32)
-    cpu = transformer.Transformer(cfg, device="cpu", master=torch.float32)
+    cfg = dataclasses.replace(get_config(arch), **dict(
+        dict(n_layers=PARITY_LAYERS, compute_dtype="float32"), **overrides))
+    model_api = api.get_model(cfg)
+    card = model_api.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                          cfg, master=torch.float32)
+    cpu = type(card)(cfg, device="cpu", master=torch.float32)
     cpu.load_state_dict(card.state_dict())
     batch = api.synth_batch(LM_SEED, cfg, TRAIN_PARITY_BATCH,
                             TRAIN_PARITY_SEQ, device="cpu")
 
     def grads(model, b):
         names, leaves = zip(*model.named_parameters())
-        loss = transformer.loss_fn(model, b, cfg)
+        loss = model_api.loss_fn(model, b, cfg)
         g = torch.autograd.grad(loss, leaves)
         return (float(loss.detach()), float(opt.global_norm(g)),
                 dict(zip(names, g)))
@@ -3078,24 +3151,65 @@ def phase_train_parity(torch, dev, record) -> None:
     worst = ("", 0.0)
     for n, w in want.items():
         err = float((got[n].cpu() - w).abs().max())
-        ratio = err / (TRAIN_F32_TOL * float(w.abs().max()))
+        lim = TRAIN_F32_TOL * float(w.abs().max())
+        ratio = err / lim if lim else (0.0 if err == 0 else math.inf)
         worst = max(worst, (n, ratio), key=lambda t: t[1])
     loss_rel = abs(got_loss - want_loss) / abs(want_loss)
     norm_rel = abs(got_norm - want_norm) / want_norm
-    _log(f"train parity (card vs CPU, f32, {PARITY_LAYERS} layers of "
-         f"{TRAIN_ARCH}, batch {TRAIN_PARITY_BATCH}, seq {TRAIN_PARITY_SEQ})"
-         f": loss {got_loss:.6f} vs {want_loss:.6f} (rel {loss_rel:.3e}), "
-         f"grad norm {got_norm:.6f} vs {want_norm:.6f} (rel {norm_rel:.3e}),"
-         f" worst gradient err/tol {worst[1]:.4f} ({worst[0]}); launches "
+    _log(f"train parity (card vs CPU, f32, {cfg.n_layers} layers of "
+         f"{arch}{f' {overrides}' if overrides else ''}, batch "
+         f"{TRAIN_PARITY_BATCH}, seq {TRAIN_PARITY_SEQ}): loss "
+         f"{got_loss:.6f} vs {want_loss:.6f} (rel {loss_rel:.3e}), grad norm"
+         f" {got_norm:.6f} vs {want_norm:.6f} (rel {norm_rel:.3e}), worst "
+         f"gradient err/tol {worst[1]:.4f} ({worst[0]}); launches "
          f"{launches}")
     if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_F32_TOL \
             or worst[1] > 1.0:
-        raise AssertionError("training parity: the card's loss or gradients "
-                             "differ from the CPU's")
-    if launches != {"flash_attention": PARITY_LAYERS}:
-        raise AssertionError(f"training parity launches {launches}")
-    record.setdefault("train", {})["parity"] = dict(
-        loss_rel=loss_rel, norm_rel=norm_rel, worst_grad=worst)
+        raise AssertionError(f"training parity {arch}: the card's loss or "
+                             f"gradients differ from the CPU's")
+    if launches != want_launches:
+        raise AssertionError(f"training parity {arch} launches {launches}")
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel, worst_grad=worst)
+
+
+def phase_train_parity(torch, dev, record) -> None:
+    """Phase 9c: two layers at Qwen1.5-0.5B's width (``_train_parity``);
+    K6 once a layer."""
+    record.setdefault("train", {})["parity"] = _train_parity(
+        torch, dev, TRAIN_ARCH, {"flash_attention": PARITY_LAYERS})
+
+
+def _adamw_steps(torch, state, cfg, batch, remat, steps):
+    """``steps`` train steps (AdamW, a warm-up of one step) of ``state`` on
+    one batch, steps 2 on under sync debug mode "warn".  Returns (the
+    losses, the host syncs of steps 2 on, the host time a step of those,
+    the kernels' launches)."""
+    import warnings
+    from repro_torch import kernels
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainHParams, make_train_step
+    step = make_train_step(cfg, TrainHParams(
+        remat=remat, adamw=opt.AdamWConfig(warmup_steps=1)))
+    kernels.reset_launches()
+    losses = []
+    state, m = step(state, batch)
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(steps - 1):
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (steps - 1)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return ([float(x) for x in losses], syncs, dt,
+            {k: v for k, v in kernels.LAUNCHES.items() if v})
 
 
 def phase_train_moe(torch, dev, record) -> None:
@@ -3103,14 +3217,10 @@ def phase_train_moe(torch, dev, record) -> None:
     bf16 compute, float32 masters, batch 8, seq 1024: the router's
     gradient nonzero and finite, then three train steps (remat ``none``)
     with a finite loss; the host syncs of steps 2 and 3 (sync debug mode
-    "warn") reported."""
-    import warnings
-    from repro_torch import kernels
+    "warn") reported (``_adamw_steps``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import api, transformer
-    from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import (TrainHParams, init_train_state,
-                                              make_train_step)
+    from repro_torch.train.train_step import init_train_state
     cfg = dataclasses.replace(get_config(MOE_ARCH),
                               n_layers=TRAIN_MOE_LAYERS)
     torch.cuda.empty_cache()
@@ -3126,29 +3236,9 @@ def phase_train_moe(torch, dev, record) -> None:
     del rg, loss
     if not all(math.isfinite(x) and x > 0 for x in router_norm):
         raise AssertionError(f"MoE router gradient norms {router_norm}")
-    step = make_train_step(cfg, TrainHParams(
-        remat="none", adamw=opt.AdamWConfig(warmup_steps=1)))
-    kernels.reset_launches()
-    losses = []
-    state, m = step(state, batch)
-    losses.append(m["loss"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            for _ in range(TRAIN_MOE_STEPS - 1):
-                state, m = step(state, batch)
-                losses.append(m["loss"])
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / (TRAIN_MOE_STEPS - 1)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    vals = [float(x) for x in losses]
+    vals, syncs, dt, launches = _adamw_steps(torch, state, cfg, batch,
+                                             "none", TRAIN_MOE_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     n_params = sum(p.numel() for p in model.parameters())
     del state, model, routers, batch
     torch.cuda.empty_cache()
@@ -3166,6 +3256,260 @@ def phase_train_moe(torch, dev, record) -> None:
     record.setdefault("train", {})["moe"] = dict(
         router_grad_norms=router_norm, losses=vals, host_syncs=syncs,
         step_s=dt, peak_gib=peak, params=n_params)
+
+
+def phase_train_rwkv(torch, record) -> dict:
+    """Phase 9e: ``launch.train.main`` on RWKV6-3B at its full config (32
+    layers, d 2,560, vocab 65,536), bf16 compute, float32 masters, AdamW,
+    remat ``full``, batch RWKV_TRAIN_BATCH, seq 1024, six steps on a
+    repeated batch (``_train_main_run``): K9 32 times a step in the forward
+    and 32 more in the recompute; ``mfu`` against 6·N a token.  Returns
+    the run's record."""
+    from repro_torch.configs import get_config
+    cfg = get_config(RWKV_ARCH)
+    run = _train_main_run(
+        torch, RWKV_ARCH, "full", RWKV_TRAIN_BATCH, "wkv6", 2 * cfg.n_layers,
+        lambda n: 6 * n,
+        "6·N; the WKV recurrence's 7·L·d·D, under 0.5 % of it, left out",
+        ("wkv6_kernel",), None)
+    record.setdefault("train", {})["rwkv6"] = run
+    return run
+
+
+def _routed_experts(torch, p, h, cfg) -> list:
+    """The experts that ``moe.moe_apply`` sends at least one token of ``h``
+    to: its router's top-k over the real experts."""
+    import torch.nn.functional as F
+    logits = F.linear(h.reshape(-1, h.shape[-1]).float(), p.router)
+    logits[:, cfg.n_experts:] = -1e30
+    idx = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)[1]
+    return sorted(set(idx.flatten().tolist()))
+
+
+def phase_train_jamba(torch, dev, record) -> dict:
+    """Phase 9f: Jamba at full width, one superblock, in the served layout
+    (bf16 matrices, H10's float32 leaves) made trainable with
+    ``requires_grad_()`` (float32 masters and AdamW for its 13.3 B
+    parameters, 213 GB, fit no card): the forward and backward of
+    ``jamba.loss_fn`` under remat ``full``, batch JAMBA_TRAIN_BATCH, seq
+    1024, once to warm up and TRAIN_JAMBA_RUNS times timed (CUDA events):
+    K8 7 times and K6 once in each forward and again in the recompute, the
+    loss finite, every gradient finite, and every expert that received
+    tokens (the routing recomputed from the MoE layers' inputs) with a
+    nonzero gradient in each of its three matrices; peak memory.  Returns
+    the launches of a run."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, jamba, moe
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = jamba.init(torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
+    for p in model.parameters():
+        p.requires_grad_()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    batch = api.synth_batch(LM_SEED, cfg, JAMBA_TRAIN_BATCH, TRAIN_SEQ,
+                            device=dev)
+    names, leaves = zip(*model.named_parameters())
+
+    def run():
+        loss = jamba.loss_fn(model, batch, cfg, remat="full")
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    calls = []
+    kernels.reset_launches()
+    with _calls(moe, "moe_apply", calls):
+        loss, grads = run()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = dict(zip(names, grads))
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    # the forward's four MoE calls (the recompute repeats them)
+    blk = model.blocks[0]
+    silent, routed = [], []
+    for (p, h, _), _ in calls[:len(jamba.MOE_POS)]:
+        i = next(j for j, m in enumerate(blk.moe) if m is p)
+        used = _routed_experts(torch, p, h, cfg)
+        routed.append(len(used))
+        for name in ("e_wi", "e_wg", "e_wd"):
+            g = grads[f"blocks.0.moe.{i}.{name}"]
+            silent += [(i, name, e) for e in used
+                       if float(g[e].abs().max()) == 0.0]
+    loss_val = float(loss)
+    del grads, calls, loss
+    times = []
+    for _ in range(TRAIN_JAMBA_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, grads = run()
+        stop.record()
+        del loss, grads
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    del model, leaves, batch
+    torch.cuda.empty_cache()
+    _log(f"train {JAMBA_ARCH} at {JAMBA_LAYERS} layers, full width (served "
+         f"layout made trainable, {n_params} parameters, {weights_gib:.2f} "
+         f"GiB of weights; batch {JAMBA_TRAIN_BATCH}, seq {TRAIN_SEQ}, remat "
+         f"full): loss {loss_val:.4f}; forward and backward "
+         f"{[round(t, 3) for t in times]} ms, peak {peak:.2f} GiB; "
+         f"launches {launches}; non-finite gradients {bad}; experts routed "
+         f"a MoE layer {routed}, routed experts with a zero gradient "
+         f"{silent}")
+    if not math.isfinite(loss_val) or bad or silent:
+        raise AssertionError(f"Jamba training: loss {loss_val}, non-finite "
+                             f"{bad}, silent experts {silent}")
+    want = {"selective_scan": 2 * 7, "flash_attention": 2}
+    if launches != want:
+        raise AssertionError(f"Jamba training launches {launches}, expected "
+                             f"{want}")
+    record.setdefault("train", {})["jamba"] = dict(
+        loss=loss_val, ms=times, median_ms=statistics.median(times),
+        peak_gib=peak, weights_gib=weights_gib, params=n_params,
+        launches=launches, experts_routed=routed)
+    return launches
+
+
+def phase_train_recurrent_parity(torch, dev, record) -> None:
+    """Phase 9g: RWKV6-3B at two layers of full width and Jamba's
+    superblock at a quarter width (JAMBA_PARITY), float32, batch 2, seq
+    128, card against CPU (``_train_parity``): K9 once a layer; K8 7 times
+    and K6 once.  Then Jamba's AdamW step at that width, where its float32
+    masters and moments fit (0.93 B parameters): bf16 compute, remat
+    ``full``, batch 2, seq 1024, TRAIN_JAMBA_STEPS steps on one batch
+    (``_adamw_steps``), the loss finite and falling, K8 14 and K6 2 times a
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.train_step import init_train_state
+    train = record.setdefault("train", {})
+    train["rwkv6_parity"] = _train_parity(torch, dev, RWKV_ARCH,
+                                          {"wkv6": PARITY_LAYERS})
+    torch.cuda.empty_cache()
+    train["jamba_parity"] = _train_parity(
+        torch, dev, JAMBA_ARCH, {"selective_scan": 7, "flash_attention": 1},
+        **JAMBA_PARITY)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), **JAMBA_PARITY)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(LM_SEED),
+                             cfg)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    batch = api.synth_batch(LM_SEED, cfg, JAMBA_TRAIN_BATCH, TRAIN_SEQ,
+                            device=dev)
+    vals, syncs, dt, launches = _adamw_steps(torch, state, cfg, batch, "full",
+                                             TRAIN_JAMBA_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, batch
+    torch.cuda.empty_cache()
+    _log(f"train {JAMBA_ARCH} at a quarter width ({JAMBA_PARITY}; bf16, "
+         f"float32 masters, AdamW, remat full, {n_params} parameters, batch "
+         f"{JAMBA_TRAIN_BATCH}, seq {TRAIN_SEQ}): losses "
+         f"{[round(x, 4) for x in vals]}; host syncs in steps 2-"
+         f"{TRAIN_JAMBA_STEPS}: {syncs}; {dt * 1e3:.1f} ms a step (host "
+         f"clock), peak {peak:.2f} GiB; launches {launches}")
+    want = {"selective_scan": 14 * TRAIN_JAMBA_STEPS,
+            "flash_attention": 2 * TRAIN_JAMBA_STEPS}
+    if not all(math.isfinite(x) for x in vals) or vals[-1] >= vals[0]:
+        raise AssertionError(f"Jamba AdamW steps: losses {vals}")
+    if launches != want:
+        raise AssertionError(f"Jamba AdamW steps: launches {launches}, "
+                             f"expected {want}")
+    train["jamba_adamw"] = dict(losses=vals, host_syncs=syncs, step_s=dt,
+                                peak_gib=peak, params=n_params)
+
+
+def phase_train_functions(torch, dev, record) -> dict:
+    """Phase 9h: the WKV6 and SelectiveScan Functions (K9, K8 forward;
+    the explicit backwards of ``kernels/rwkv6/backward.py`` and
+    ``kernels/mamba_scan/backward.py``) on the card against autograd
+    through their plain versions, at 9e's and 9f's shapes: r, k, v, w
+    (8·40, 1024, 64) and u in bf16 (the served type; float32 is held at
+    the model's level in 9g), and x, Δ (2, 1024, 8192), b, c (2, 1024,
+    16), a and d in float32 (the mixer's scan type), each gradient within
+    the tolerances of 9a (float32 1e-4 of its largest |g|, bf16 2**-6 of
+    it), the kernel launched once a forward; the backward's time a layer
+    (CUDA events) beside the kernel's forward time, the plain version's
+    forward plus backward (its one checked run) and a bound:
+    the inputs and output gradient read once and the gradients written
+    once at 3.35 TB/s, or 12·BH·T·D² (WKV6: the states once, the adjoints,
+    the outer products and the four batched terms at 2·D² a step) and
+    18·B·T·dim·N (the scan) operations at 67 TFLOP/s, the larger.  Returns
+    {kernel: its numbers}."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import backward as scan_bwd
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.kernels.rwkv6 import backward as wkv_bwd
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    rcfg, jcfg = get_config(RWKV_ARCH), get_config(JAMBA_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    bh, hd = RWKV_TRAIN_BATCH * rcfg.n_heads, rcfg.rwkv_head_dim
+    cases = [("wkv6", torch.bfloat16, _wkv_inputs(
+        torch, gen, bh, TRAIN_SEQ, hd, torch.bfloat16), wkv_ops.wkv6,
+        wkv_ref.wkv6, wkv_bwd.wkv6_backward)]
+    cases.append(("selective_scan", torch.float32, _scan_inputs(
+        torch, gen, JAMBA_TRAIN_BATCH, TRAIN_SEQ, jcfg.d_inner, jcfg.d_state,
+        torch.float32), scan_ops.selective_scan, scan_ref.selective_scan,
+        scan_bwd.selective_scan_backward))
+    out = {}
+    for name, dtype, args, op, plain, bwd in cases:
+        args = [z.contiguous().requires_grad_() for z in args]
+        dout = torch.randn(args[0].shape, generator=gen,
+                           device=dev).to(dtype)
+        kernels.reset_launches()
+        got = torch.autograd.grad(op(*args), args, dout)
+        launches = kernels.LAUNCHES[name]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()          # one plain run of about 2 s, timed as is
+        want = torch.autograd.grad(plain(*args), args, dout)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        rel = TRAIN_F32_TOL if dtype == torch.float32 else TRAIN_BF16_REL
+        errs = {}
+        for i, (g, w) in enumerate(zip(got, want)):
+            err = float((g.float() - w.float()).abs().max())
+            lim = rel * float(w.float().abs().max())
+            errs[i] = err / lim if lim else (0.0 if err == 0 else math.inf)
+        del got, want
+        torch.cuda.empty_cache()
+        if launches != 1 or max(errs.values()) > 1.0:
+            raise AssertionError(f"{name} Function [{dtype}]: {launches} "
+                                 f"launches, err/tol {errs}")
+        detached = [z.detach() for z in args]
+        bwd_ms = _time_ms(torch, lambda: bwd(*detached, dout), 3, warmup=1)
+        fwd_ms = _time_ms(torch, lambda: op(*detached), 10)
+        io = sum(z.numel() * z.element_size() for z in args) * 2 \
+            + 2 * dout.numel() * dout.element_size()
+        if name == "wkv6":
+            nops = 12 * bh * TRAIN_SEQ * hd * hd
+        else:
+            nops = 18 * dout.numel() * jcfg.d_state
+        bound_ms, bound_by = _bound_ms(io, nops)
+        shape = tuple(args[0].shape)
+        row = dict(dtype=str(dtype).split(".")[1], shape=list(shape),
+                   err_over_tol=errs, backward_ms=bwd_ms, forward_ms=fwd_ms,
+                   plain_fwd_bwd_ms=plain_ms, backward_bound_ms=bound_ms,
+                   backward_bound_by=bound_by, tol=rel)
+        out.setdefault(name, {})[row["dtype"]] = row
+        _log(f"{name} Function [{row['dtype']}, {shape}]: gradients err/tol "
+             f"{ {k: round(v, 4) for k, v in errs.items()} } (tol {rel:.3g} "
+             f"of max |g|); backward {bwd_ms:.3f} ms a layer, kernel "
+             f"forward {fwd_ms:.4f} ms, plain forward+backward "
+             f"{plain_ms:.3f} ms, backward bound {bound_ms:.4f} ms "
+             f"({bound_by})")
+        del args, detached, dout
+        torch.cuda.empty_cache()
+    record.setdefault("train", {})["functions"] = out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4028,6 +4372,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.core import generators, kruskal_ref, runtime
     from repro_torch.kernels import build
 
@@ -4122,6 +4467,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     rows += phase_attention(torch, dev, record, logs["flash_attention"],
                             logs["decode_attention"])
     torch.cuda.empty_cache()
@@ -4147,6 +4493,8 @@ def main() -> int:
     phase_parity(torch, dev, record, MOE_ARCH, {
         "flash_attention": PARITY_LAYERS,
         "decode_attention": PARITY_LAYERS * (PARITY_GEN - 1)})
+    record["lm_phase_s"] = time.perf_counter() - t0
+    _log(f"phases 6-8 (LM serving): {record['lm_phase_s']:.1f} s")
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4154,15 +4502,34 @@ def main() -> int:
     train_k6 = phase_train_run(torch, record)
     phase_train_parity(torch, dev, record)
     phase_train_moe(torch, dev, record)
+    rwkv_train = phase_train_rwkv(torch, record)
+    jamba_train = phase_train_jamba(torch, dev, record)
+    phase_train_recurrent_parity(torch, dev, record)
+    funcs = phase_train_functions(torch, dev, record)
+    wkv_bwd, scan_bwd = (funcs["wkv6"]["bfloat16"],
+                         funcs["selective_scan"]["float32"])
+    share = (get_config(RWKV_ARCH).n_layers * wkv_bwd["backward_ms"]
+             / rwkv_train["median_step_ms"])
+    record["train"]["rwkv6"]["wkv_backward_share"] = share
     record["train_phase_s"] = time.perf_counter() - t0
     _log(f"phase 9 (training): {record['train_phase_s']:.1f} s; K6 a step "
-         f"{train_k6}")
+         f"{train_k6}; RWKV6-3B: K9 a step "
+         f"{rwkv_train['launches_per_step'][0]}, the WKV backward (32 × "
+         f"{wkv_bwd['backward_ms']:.3f} ms) {share:.4f} of the median step; "
+         f"Jamba's superblock: launches a step {jamba_train}")
 
     rows.append(ghs_row)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] == "flash_attention":
             row["train_launches_per_step"] = train_k6
+        elif row["name"] == "wkv6":
+            row["train_launches_per_step"] = \
+                rwkv_train["launches_per_step"][0]
+            row["backward_ms"] = wkv_bwd["backward_ms"]
+        elif row["name"] == "selective_scan":
+            row["train_launches_per_step"] = jamba_train["selective_scan"]
+            row["backward_ms"] = scan_bwd["backward_ms"]
     record["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.flash_attention import TYPES
+from repro_torch.kernels.flash_attention.ref import acc_dtype
 from repro_torch.kernels.mamba_scan import ref
 
 
@@ -39,8 +40,10 @@ def _check(x, dt, b, c, a, d) -> None:
         raise ValueError("selective_scan: a must be (dim, N) and d (dim,)")
     if any(z.dtype != x.dtype for z in (dt, b, c)):
         raise TypeError("selective_scan: x, dt, b and c must share one type")
-    if a.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError("selective_scan: a and d must be float32")
+    want = acc_dtype(x.dtype)
+    if a.dtype != want or d.dtype != want:
+        raise TypeError("selective_scan: a and d must be float32 (float64 "
+                        "for float64 inputs)")
     if any(z.device != x.device for z in (dt, b, c, a, d)):
         raise ValueError("selective_scan: all inputs must share one device")
 

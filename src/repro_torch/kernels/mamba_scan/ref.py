@@ -11,12 +11,15 @@ chunking changes memory, not numbers, so this version has none.  Every
 product and sum is a separately rounded float32 operation in a fixed order,
 and the sum over n is the halving tree of ``kernels/rwkv6/ref.halving_sum``:
 the CUDA kernel ``csrc/mamba_scan.cu`` does the same operations in the same
-order, so on the card the two agree bit for bit.
+order, so on the card the two agree bit for bit.  float64 inputs are
+computed in float64 (for ``gradcheck``); the kernel takes float32 and bf16
+only.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ref import acc_dtype
 from repro_torch.kernels.rwkv6.ref import halving_sum
 
 
@@ -24,12 +27,12 @@ def selective_scan(x, dt, b, c, a, d, *, return_state: bool = False):
     """x, dt: (B, T, dim); b, c: (B, T, N); a: (dim, N); d: (dim,).
 
     Returns y (B, T, dim) in x's type and, with ``return_state``, the final
-    state (B, dim, N) float32."""
+    state (B, dim, N) float32 (float64 for float64 inputs)."""
     bsz, t, dim = x.shape
     n = b.shape[-1]
-    xf, dtf, bf, cf = (z.float() for z in (x, dt, b, c))
-    af, df = a.float(), d.float()
-    h = torch.zeros((bsz, dim, n), dtype=torch.float32, device=x.device)
+    acc = acc_dtype(x.dtype)
+    xf, dtf, bf, cf, af, df = (z.to(acc) for z in (x, dt, b, c, a, d))
+    h = torch.zeros((bsz, dim, n), dtype=acc, device=x.device)
     ys = []
     for i in range(t):
         dti, xi = dtf[:, i], xf[:, i]
@@ -38,7 +41,7 @@ def selective_scan(x, dt, b, c, a, d, *, return_state: bool = False):
         hc = (h * cf[:, i, None, :]).reshape(bsz * dim, n)
         ys.append(halving_sum(hc).reshape(bsz, dim) + df * xi)
     y = (torch.stack(ys, dim=1) if ys else
-         torch.zeros((bsz, 0, dim), dtype=torch.float32, device=x.device))
+         torch.zeros((bsz, 0, dim), dtype=acc, device=x.device))
     y = y.to(x.dtype)
     return (y, h) if return_state else y
 

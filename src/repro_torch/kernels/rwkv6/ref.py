@@ -11,10 +11,14 @@ has none.  Every product and sum is a separately rounded float32 operation
 in a fixed order, and the sum over i is a halving tree
 (:func:`halving_sum`): the CUDA kernel ``csrc/wkv6.cu`` does the same
 operations in the same order, so on the card the two agree bit for bit.
+float64 inputs are computed in float64 (for ``gradcheck``); the kernel
+takes float32 and bf16 only.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.flash_attention.ref import acc_dtype
 
 
 def halving_sum(x: torch.Tensor) -> torch.Tensor:
@@ -37,17 +41,18 @@ def _step(s, r, k, v, w, u):
 
 def wkv6(r, k, v, w, u, *, return_state: bool = False):
     """r, k, v, w: (BH, T, D); u: (BH, D).  Returns out (BH, T, D) in r's
-    type and, with ``return_state``, the final state (BH, D, D) float32."""
+    type and, with ``return_state``, the final state (BH, D, D) float32
+    (float64 for float64 inputs)."""
     bh, t, d = r.shape
-    rf, kf, vf, wf = (z.float() for z in (r, k, v, w))
-    uf = u.float()
-    s = torch.zeros((bh, d, d), dtype=torch.float32, device=r.device)
+    acc = acc_dtype(r.dtype)
+    rf, kf, vf, wf, uf = (z.to(acc) for z in (r, k, v, w, u))
+    s = torch.zeros((bh, d, d), dtype=acc, device=r.device)
     outs = []
     for i in range(t):
         s, o = _step(s, rf[:, i], kf[:, i], vf[:, i], wf[:, i], uf)
         outs.append(o)
     out = (torch.stack(outs, dim=1) if outs else
-           torch.zeros((bh, 0, d), dtype=torch.float32, device=r.device))
+           torch.zeros((bh, 0, d), dtype=acc, device=r.device))
     out = out.to(r.dtype)
     return (out, s) if return_state else out
 

@@ -4,10 +4,8 @@ types as ``meta`` tensors) and ``synth_batch`` (random batches for smoke
 runs).
 
 The dense, moe (on the transformer, as in the JAX package), ssm (RWKV6)
-and hybrid (Jamba) families are ported.  The dense and moe families
-train; the ``loss_fn`` of ssm and hybrid raises until their backwards
-come (ROADMAP queue 1, item 14, slice 3b).  The other families wait for
-their slice of item 14, named in the error each raises.
+and hybrid (Jamba) families are ported, and all four train.  The other
+families wait for their slice of item 14, named in the error each raises.
 """
 from __future__ import annotations
 
@@ -26,11 +24,6 @@ WAITING = {
     "encdec": "item 14, slice 4 (the remaining families)",
     "vlm": "item 14, slice 4 (the remaining families)",
 }
-# family -> the slice that brings its training
-TRAINING_WAITS = {
-    "ssm": "item 14, slice 3b (RWKV6 training: a backward of K9)",
-    "hybrid": "item 14, slice 3b (Jamba training: a backward of K8)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,14 +33,6 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
     make_decode_state: Callable     # (cfg, batch, max_len, device) -> state
-
-
-def _training_waits(family: str) -> Callable:
-    def loss_fn(params, batch, cfg, *, remat: str = "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: loss_fn of the {family} family is not ported yet "
-            f"(ROADMAP queue 1, {TRAINING_WAITS[family]})")
-    return loss_fn
 
 
 def _transformer_state(cfg, batch, max_len, device=None):
@@ -69,10 +54,10 @@ def get_model(cfg: ModelConfig) -> ModelApi:
                         transformer.prefill, transformer.decode_step,
                         _transformer_state)
     if fam == "ssm":
-        return ModelApi(rwkv6.init, _training_waits(fam), rwkv6.prefill,
+        return ModelApi(rwkv6.init, rwkv6.loss_fn, rwkv6.prefill,
                         rwkv6.decode_step, _rwkv_state)
     if fam == "hybrid":
-        return ModelApi(jamba.init, _training_waits(fam), jamba.prefill,
+        return ModelApi(jamba.init, jamba.loss_fn, jamba.prefill,
                         jamba.decode_step, _jamba_state)
     if fam in WAITING:
         raise NotImplementedError(

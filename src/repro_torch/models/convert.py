@@ -64,17 +64,12 @@ def from_reference(params, cfg: ModelConfig, *, device=None,
     :class:`~repro_torch.models.jamba.Jamba` for hybrid) holding ``params``
     (the JAX pytree, leaves as numpy arrays or anything ``np.asarray``
     takes), on the card unless ``device`` names another.  ``train`` loads
-    them as float32 masters that require grad (the dense and moe
-    families).  Raises if a parameter is missing, left over or of another
-    shape."""
+    them as float32 masters that require grad.  Raises if a parameter is
+    missing, left over or of another shape."""
     if cfg.family not in MODELS:
         raise NotImplementedError(f"{cfg.name}: no port of the {cfg.family} "
                                   f"family to load into")
     cls, stack = MODELS[cfg.family]
-    if train and cfg.family not in transformer.FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family waits for ROADMAP "
-            f"queue 1, item 14, slice 3b")
     kw = dict(master=torch.float32) if train else {}
     model = cls(cfg, device=runtime.resolve_device(device), **kw)
     state = {}

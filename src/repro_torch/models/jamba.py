@@ -1,7 +1,7 @@
 """Jamba v0.1 hybrid: Mamba and attention 7:1, MoE (16 experts, top 2) at
 every other sublayer (arXiv:2403.19887): ``init``, ``init_state``,
-``prefill`` and ``decode_step``, in the names of the JAX package's
-``models/jamba.py``.
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step``, in the names of
+the JAX package's ``models/jamba.py``.
 
 Sublayer l of a superblock of 8: the mixer is attention iff l == 4, else
 Mamba; the MLP is MoE iff l is odd, else a dense SwiGLU, exactly the
@@ -10,12 +10,19 @@ here each is a :class:`Superblock` module in a ``ModuleList`` and the loop
 is a Python loop.  Attention runs the flash-attention kernel K6 in the
 prefill and the decode-attention kernel K7 in each decode step, as the
 dense family does; each Mamba mixer runs the selective-scan kernel K8 in
-the prefill (``models/mamba.py``).  ``forward`` and ``loss_fn`` wait for
-training (ROADMAP queue 1, item 14, slice 3b).
+the prefill (``models/mamba.py``).  A model made with
+``master=torch.float32`` trains, as ``transformer.Transformer`` does: the
+training pass of a superblock (:meth:`Superblock.train_forward`) runs K8
+through ``SelectiveScan`` and K6 through ``Attention``, the autograd
+Functions with explicit backwards, and ``forward(remat=)`` checkpoints
+whole superblocks, as the JAX package's ``jax.checkpoint`` of its scan
+body does (its ``sub_remat=False``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 from torch import nn
@@ -34,37 +41,58 @@ class Superblock(nn.Module):
     """Eight sublayers' parameters, named as the JAX package's
     ``_superblock_init`` names them: ``mamba`` (7 mixers), ``attn``,
     ``moe`` (4), ``ff`` (4 SwiGLU of width ``d_ff``), and the norms' gains
-    ``ln_mix`` and ``ln_mlp`` (8, d) float32."""
+    ``ln_mix`` and ``ln_mlp`` (8, d) float32; trainable float32 masters
+    when ``master`` is given."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
-        dt = layers.cdtype(cfg)
-        self.mamba = nn.ModuleList(mamba.Mamba(cfg, device)
+        grad = master is not None
+        self.mamba = nn.ModuleList(mamba.Mamba(cfg, device, master)
                                    for _ in range(N_MAMBA))
-        self.attn = layers.Attention(cfg, device)
-        self.moe = nn.ModuleList(moe.MoE(cfg, device)
+        self.attn = layers.Attention(cfg, device, master)
+        self.moe = nn.ModuleList(moe.MoE(cfg, device, master)
                                  for _ in range(len(MOE_POS)))
-        self.ff = nn.ModuleList(layers.SwiGLU(cfg.d_model, cfg.d_ff,
-                                              dtype=dt, device=device)
-                                for _ in range(len(FF_POS)))
+        self.ff = nn.ModuleList(layers.SwiGLU(
+            cfg.d_model, cfg.d_ff, dtype=layers.wdtype(cfg, master),
+            device=device, requires_grad=grad) for _ in range(len(FF_POS)))
         self.ln_mix = layers.param((SUPER, cfg.d_model), torch.float32,
-                                   device, 1.0)
+                                   device, 1.0, requires_grad=grad)
         self.ln_mlp = layers.param((SUPER, cfg.d_model), torch.float32,
-                                   device, 1.0)
+                                   device, 1.0, requires_grad=grad)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in (*self.mamba, self.attn, *self.moe, *self.ff):
             m.reset_parameters(generator)
 
     def _mlp(self, idx: int, x):
+        """The MLP half of sublayer ``idx`` with its residual: (x + y, the
+        router's aux loss, float32, or None for a dense MLP)."""
         cfg = self.cfg
         h = layers.rmsnorm(x, self.ln_mlp[idx], cfg.norm_eps)
         if idx in MOE_POS:
-            y, _ = moe.moe_apply(self.moe[MOE_POS.index(idx)], h, cfg)
-        else:
-            y = layers.swiglu_apply(self.ff[FF_POS.index(idx)], h)
-        return x + y
+            y, aux = moe.moe_apply(self.moe[MOE_POS.index(idx)], h, cfg)
+            return x + y, aux
+        return x + layers.swiglu_apply(self.ff[FF_POS.index(idx)], h), None
+
+    def train_forward(self, x, positions):
+        """Training: x (B, S, d) -> (x, the four MoE layers' summed aux
+        loss), writing no state; K8 and K6 keep their gradients."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        mi = 0
+        for idx in range(SUPER):
+            h = layers.rmsnorm(x, self.ln_mix[idx], cfg.norm_eps)
+            if idx == ATTN_POS:
+                a = layers.attn_apply(self.attn, h, cfg, positions=positions)
+            else:
+                a = mamba.mamba_apply(self.mamba[mi], h, cfg)
+                mi += 1
+            x, a = self._mlp(idx, x + a)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def forward(self, x, positions, state: "HybridState", bi: int):
         """Prefill of superblock ``bi``: x (B, S, d) -> x; writes its Mamba
@@ -86,7 +114,7 @@ class Superblock(nn.Module):
                 state.conv[bi, mi] = conv
                 state.ssm[bi, mi] = ssm
                 mi += 1
-            x = self._mlp(idx, x + a)
+            x = self._mlp(idx, x + a)[0]
         return x
 
     def decode(self, x, state: "HybridState", bi: int):
@@ -106,7 +134,7 @@ class Superblock(nn.Module):
                 state.conv[bi, mi] = conv
                 state.ssm[bi, mi] = ssm
                 mi += 1
-            x = self._mlp(idx, x + a)
+            x = self._mlp(idx, x + a)[0]
         return x
 
 
@@ -114,9 +142,10 @@ class Jamba(nn.Module):
     """The LM: ``embed``, ``lm_head`` (None when tied), ``blocks`` (one
     :class:`Superblock` per 8 layers) and ``final_norm``; parameters
     uninitialized until :func:`init` or ``convert.from_reference`` fills
-    them."""
+    them.  ``master`` None serves; a dtype (float32) trains."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.family != "hybrid":
             raise ValueError(f"{cfg.name}: not a Jamba (hybrid) config")
@@ -124,13 +153,14 @@ class Jamba(nn.Module):
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
                              f"whole superblocks of {SUPER}")
         self.cfg = cfg
-        dt = layers.cdtype(cfg)
-        self.embed = layers.param((cfg.vocab, cfg.d_model), dt, device)
+        dt = layers.wdtype(cfg, master)
+        new = functools.partial(layers.param, device=device,
+                                requires_grad=master is not None)
+        self.embed = new((cfg.vocab, cfg.d_model), dt)
         self.lm_head = (None if cfg.tie_embeddings else
-                        layers.param((cfg.vocab, cfg.d_model), dt, device))
-        self.final_norm = layers.param((cfg.d_model,), torch.float32, device,
-                                       1.0)
-        self.blocks = nn.ModuleList(Superblock(cfg, device)
+                        new((cfg.vocab, cfg.d_model), dt))
+        self.final_norm = new((cfg.d_model,), torch.float32, fill=1.0)
+        self.blocks = nn.ModuleList(Superblock(cfg, device, master)
                                     for _ in range(cfg.n_layers // SUPER))
 
 
@@ -147,14 +177,38 @@ class HybridState:
     index: int
 
 
-def init(generator: torch.Generator, cfg: ModelConfig) -> Jamba:
-    """Random weights from ``generator``, on its device."""
-    model = Jamba(cfg, device=generator.device)
-    for blk in model.blocks:
-        blk.reset_parameters(generator)
-    for name, t in layers.embed_init(generator, cfg).items():
-        getattr(model, name).copy_(t)
+def init(generator: torch.Generator, cfg: ModelConfig,
+         master: Optional[torch.dtype] = None) -> Jamba:
+    """Random weights from ``generator``, on its device; trainable float32
+    masters when ``master`` is ``torch.float32``."""
+    model = Jamba(cfg, device=generator.device, master=master)
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.reset_parameters(generator)
+        for name, t in layers.embed_init(generator, cfg).items():
+            getattr(model, name).copy_(t)
     return model
+
+
+def forward(params: Jamba, tokens, cfg: ModelConfig, *, remat: str = "none"):
+    """The final hidden states (B, S, d), after the final norm, and the
+    superblocks' summed aux loss (float32); each superblock checkpointed
+    whole under ``remat`` (``layers.REMAT_POLICIES``)."""
+    block = layers.remat(Superblock.train_forward, remat)
+    x = layers.embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.blocks:
+        x, a = block(blk, x, positions)
+        aux = aux + a
+    return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
+
+
+def loss_fn(params: Jamba, batch, cfg: ModelConfig, *, remat: str = "none"):
+    """The chunked LM loss plus the aux loss, a float32 scalar.  ``batch``:
+    ``tokens`` and ``labels`` (B, S) int, labels -100 ignored."""
+    x, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    return layers.chunked_lm_loss(params, x, batch["labels"], cfg) + aux
 
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int, *,

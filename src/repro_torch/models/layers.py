@@ -28,12 +28,43 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import runtime
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models.config import ModelConfig
+
+
+_aten = torch.ops.aten
+# remat -> None (no checkpoint), () (a checkpoint that keeps nothing: the
+# layer's forward reruns in the backward) or the ops whose outputs a
+# selective checkpoint keeps: the matrix products (JAX's ``checkpoint_dots``)
+# or those without batch dims (``checkpoint_dots_with_no_batch_dims``).
+REMAT_POLICIES = {
+    "none": None,
+    "full": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
+
+
+def remat(fn, policy: str):
+    """``fn`` under ``policy``: itself, or a call of it under a checkpoint
+    that keeps nothing (``full``) or the outputs of the matrix products
+    (``dots``, ``dots_no_batch``), as the JAX package's ``jax.checkpoint``
+    of a layer does.  A recomputed forward reruns its kernels."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {policy!r}; options: "
+                         f"{sorted(REMAT_POLICIES)}")
+    keep = REMAT_POLICIES[policy]
+    if keep is None:
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if keep:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, list(keep))
+    return functools.partial(ckpt.checkpoint, fn, **kw)
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -310,7 +341,7 @@ def chunked_lm_loss(p, x, labels, cfg: ModelConfig, *, chunk: int = 512):
     w = _cast(_head(p, cfg), x)          # cast once, outside the chunks
     nll = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, chunk):
-        n, c = checkpoint(_chunk_sums, x[:, i:i + chunk], w,
+        n, c = ckpt.checkpoint(_chunk_sums, x[:, i:i + chunk], w,
                           labels[:, i:i + chunk], use_reentrant=False,
                           preserve_rng_state=False)
         nll, cnt = nll + n, cnt + c

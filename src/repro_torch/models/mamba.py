@@ -12,9 +12,16 @@ The precision is the JAX package's (ROADMAP hazard H10): ``in_proj``,
 package casts them at each use; ``dt_proj``, ``dt_bias``, ``a_log``,
 ``d_skip`` and the conv's ``conv_w`` and ``conv_b`` stay float32 masters.
 The prefill conv runs in the compute type, the decode conv in float32, the
-Δ projection and the scan in float32.
+Δ projection and the scan in float32.  A mixer made with
+``master=torch.float32`` trains: its three matrices become float32 masters
+cast to the compute type at each use, every parameter requires grad (the
+float32 leaves stay float32), and the scan runs through
+``scan_ops.SelectiveScan`` (K8 forward, an explicit backward).
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,23 +41,27 @@ def dt_rank(cfg: ModelConfig) -> int:
 class Mamba(nn.Module):
     """One mixer's parameters, named as the JAX package's ``mamba_init``
     names them: ``in_proj`` (2·d_inner, d), ``x_proj`` (r + 2N, d_inner)
-    and ``out_proj`` (d, d_inner) in the compute type; ``dt_proj``
-    (d_inner, r), ``conv_w`` (K, d_inner), ``conv_b``, ``dt_bias``,
-    ``a_log`` (d_inner, N) and ``d_skip`` float32."""
+    and ``out_proj`` (d, d_inner) in the compute type (or the ``master``
+    type, trainable); ``dt_proj`` (d_inner, r), ``conv_w`` (K, d_inner),
+    ``conv_b``, ``dt_bias``, ``a_log`` (d_inner, N) and ``d_skip``
+    float32."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         d, di, n = cfg.d_model, cfg.d_inner, cfg.d_state
-        r, dt, f32 = dt_rank(cfg), layers.cdtype(cfg), torch.float32
-        self.in_proj = layers.param((2 * di, d), dt, device)
-        self.conv_w = layers.param((cfg.d_conv, di), f32, device)
-        self.conv_b = layers.param((di,), f32, device, 0.0)
-        self.x_proj = layers.param((r + 2 * n, di), dt, device)
-        self.dt_proj = layers.param((di, r), f32, device)
-        self.dt_bias = layers.param((di,), f32, device)
-        self.a_log = layers.param((di, n), f32, device)
-        self.d_skip = layers.param((di,), f32, device, 1.0)
-        self.out_proj = layers.param((d, di), dt, device)
+        r, dt, f32 = dt_rank(cfg), layers.wdtype(cfg, master), torch.float32
+        new = functools.partial(layers.param, device=device,
+                                requires_grad=master is not None)
+        self.in_proj = new((2 * di, d), dt)
+        self.conv_w = new((cfg.d_conv, di), f32)
+        self.conv_b = new((di,), f32, fill=0.0)
+        self.x_proj = new((r + 2 * n, di), dt)
+        self.dt_proj = new((di, r), f32)
+        self.dt_bias = new((di,), f32)
+        self.a_log = new((di, n), f32)
+        self.d_skip = new((di,), f32, fill=1.0)
+        self.out_proj = new((d, di), dt)
         with torch.no_grad():
             self.a_log.copy_(torch.log(torch.arange(
                 1, n + 1, dtype=f32, device=device)).expand(di, n))
@@ -88,7 +99,7 @@ def _scan_inputs(p: Mamba, xc, cfg: ModelConfig):
     """From the conv output xc (..., di) in the compute type: Δ in float32
     and b, c (..., N) float32, contiguous."""
     r, n = dt_rank(cfg), cfg.d_state
-    dbc = F.linear(xc, p.x_proj)
+    dbc = F.linear(xc, layers._cast(p.x_proj, xc))
     dtr, bmat, cmat = torch.split(dbc, [r, n, n], dim=-1)
     dt_t = F.softplus(F.linear(dtr.float(), p.dt_proj) + p.dt_bias)
     return dt_t, bmat.float().contiguous(), cmat.float().contiguous()
@@ -105,7 +116,7 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, return_state: bool = False):
                          f"the conv window's {k - 1} (d_conv - 1): decode "
                          f"needs that many pre-conv inputs")
     dt_ = x.dtype
-    xz = F.linear(x, p.in_proj)
+    xz = F.linear(x, layers._cast(p.in_proj, x))
     x1, z = xz[..., :di], xz[..., di:]
     xc = F.silu(_conv1d(x1, p.conv_w, p.conv_b))
     dt_t, bmat, cmat = _scan_inputs(p, xc, cfg)
@@ -113,7 +124,7 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, return_state: bool = False):
     res = scan_ops.selective_scan(xc.float().contiguous(), dt_t, bmat, cmat,
                                   a, p.d_skip, return_state=return_state)
     y, h = res if return_state else (res, None)
-    y = F.linear(y.to(dt_) * F.silu(z), p.out_proj)
+    y = F.linear(y.to(dt_) * F.silu(z), layers._cast(p.out_proj, x))
     if return_state:
         return y, (x1[:, x.shape[1] - (k - 1):], h)
     return y
@@ -125,7 +136,7 @@ def mamba_step(p: Mamba, x, cfg: ModelConfig, state):
     conv_state, h = state
     di = cfg.d_inner
     dt_ = x.dtype
-    xz = F.linear(x, p.in_proj)
+    xz = F.linear(x, layers._cast(p.in_proj, x))
     x1, z = xz[:, 0, :di], xz[:, 0, di:]
     window = torch.cat([conv_state, x1[:, None]], dim=1)          # (B, K, di)
     xc = torch.einsum("bkd,kd->bd", window.float(), p.conv_w) + p.conv_b
@@ -134,7 +145,7 @@ def mamba_step(p: Mamba, x, cfg: ModelConfig, state):
     a = -torch.exp(p.a_log)
     h, y = scan_ops.selective_scan_step(h, xc.float(), dt_t, bvec, cvec, a,
                                         p.d_skip)
-    y = F.linear(y.to(dt_) * F.silu(z), p.out_proj)
+    y = F.linear(y.to(dt_) * F.silu(z), layers._cast(p.out_proj, x))
     return y[:, None], (window[:, 1:], h)
 
 

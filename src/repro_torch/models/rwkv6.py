@@ -16,12 +16,18 @@ a decode step's WKV output is cast back to the compute type, the WKV state
 stays float32 and the shift states are in the compute type.  Matrices are
 kept in ``F.linear``'s (out, in) layout and in the compute type; the LoRA
 matrices of the decay, every vector and the norms' gains stay float32, as
-the JAX package reads its float32 masters there.  ``loss_fn`` waits for
-training (ROADMAP queue 1, item 14, slice 3b).
+the JAX package reads its float32 masters there.  A model made with
+``master=torch.float32`` trains: float32 masters that require grad, each
+matrix cast to the compute type at its use (``layers._cast``); the
+recurrence then runs through ``wkv_ops.WKV6`` (K9 forward, an explicit
+backward), and ``forward(remat=)`` checkpoints each layer as the JAX
+package's ``jax.checkpoint`` of its scan body does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,29 +45,33 @@ MATRICES = ("r_proj", "k_proj", "v_proj", "g_proj", "out_proj", "ck_proj",
 
 class Layer(nn.Module):
     """One layer's parameters, named as the JAX package's ``_layer_init``
-    names them: the projections (out, in) in the compute type, ``w_lora_a``
-    (64, d) and ``w_lora_b`` (d, 64) float32, ``u`` (n_heads, head_dim) and
-    every other vector float32."""
+    names them: the projections (out, in) in the compute type (or the
+    ``master`` type, trainable), ``w_lora_a`` (64, d) and ``w_lora_b``
+    (d, 64) float32, ``u`` (n_heads, head_dim) and every other vector
+    float32."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
-        d, hd, dt = cfg.d_model, cfg.rwkv_head_dim, layers.cdtype(cfg)
-        f32 = torch.float32
+        d, hd = cfg.d_model, cfg.rwkv_head_dim
+        dt, f32 = layers.wdtype(cfg, master), torch.float32
+        new = functools.partial(layers.param, device=device,
+                                requires_grad=master is not None)
         for name in ("ln1", "ln2", "gn"):
-            setattr(self, name, layers.param((d,), f32, device, 1.0))
+            setattr(self, name, new((d,), f32, fill=1.0))
         for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "cmu_r",
                      "cmu_k"):
-            setattr(self, name, layers.param((d,), f32, device, 0.5))
-        self.w0 = layers.param((d,), f32, device, -6.0)
-        self.gn_b = layers.param((d,), f32, device, 0.0)
+            setattr(self, name, new((d,), f32, fill=0.5))
+        self.w0 = new((d,), f32, fill=-6.0)
+        self.gn_b = new((d,), f32, fill=0.0)
         for name in ("r_proj", "k_proj", "v_proj", "g_proj", "out_proj",
                      "cr_proj"):
-            setattr(self, name, layers.param((d, d), dt, device))
-        self.ck_proj = layers.param((cfg.d_ff, d), dt, device)
-        self.cv_proj = layers.param((d, cfg.d_ff), dt, device)
-        self.w_lora_a = layers.param((LORA_DIM, d), f32, device)
-        self.w_lora_b = layers.param((d, LORA_DIM), f32, device)
-        self.u = layers.param((d // hd, hd), f32, device)
+            setattr(self, name, new((d, d), dt))
+        self.ck_proj = new((cfg.d_ff, d), dt)
+        self.cv_proj = new((d, cfg.d_ff), dt)
+        self.w_lora_a = new((LORA_DIM, d), f32)
+        self.w_lora_b = new((d, LORA_DIM), f32)
+        self.u = new((d // hd, hd), f32)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random matrices, ``w_lora_b`` N(0, 0.01²) and ``u`` N(0, 0.1²),
@@ -77,20 +87,23 @@ class Layer(nn.Module):
 class RWKV6(nn.Module):
     """The LM: ``embed``, ``lm_head`` (None when tied), ``layers`` and
     ``final_norm``; parameters uninitialized until :func:`init` or
-    ``convert.from_reference`` fills them."""
+    ``convert.from_reference`` fills them.  ``master`` None serves; a
+    dtype (float32) trains, as ``transformer.Transformer`` does."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.family != "ssm":
             raise ValueError(f"{cfg.name}: not an RWKV6 (ssm) config")
         self.cfg = cfg
-        dt = layers.cdtype(cfg)
-        self.embed = layers.param((cfg.vocab, cfg.d_model), dt, device)
+        dt = layers.wdtype(cfg, master)
+        new = functools.partial(layers.param, device=device,
+                                requires_grad=master is not None)
+        self.embed = new((cfg.vocab, cfg.d_model), dt)
         self.lm_head = (None if cfg.tie_embeddings else
-                        layers.param((cfg.vocab, cfg.d_model), dt, device))
-        self.final_norm = layers.param((cfg.d_model,), torch.float32, device,
-                                       1.0)
-        self.layers = nn.ModuleList(Layer(cfg, device)
+                        new((cfg.vocab, cfg.d_model), dt))
+        self.final_norm = new((cfg.d_model,), torch.float32, fill=1.0)
+        self.layers = nn.ModuleList(Layer(cfg, device, master)
                                     for _ in range(cfg.n_layers))
 
 
@@ -104,13 +117,16 @@ class RWKVState:
     wkv: torch.Tensor
 
 
-def init(generator: torch.Generator, cfg: ModelConfig) -> RWKV6:
-    """Random weights from ``generator``, on its device."""
-    model = RWKV6(cfg, device=generator.device)
-    for layer in model.layers:
-        layer.reset_parameters(generator)
-    for name, t in layers.embed_init(generator, cfg).items():
-        getattr(model, name).copy_(t)
+def init(generator: torch.Generator, cfg: ModelConfig,
+         master: Optional[torch.dtype] = None) -> RWKV6:
+    """Random weights from ``generator``, on its device; trainable float32
+    masters when ``master`` is ``torch.float32``."""
+    model = RWKV6(cfg, device=generator.device, master=master)
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.reset_parameters(generator)
+        for name, t in layers.embed_init(generator, cfg).items():
+            getattr(model, name).copy_(t)
     return model
 
 
@@ -152,10 +168,10 @@ def _time_mix(lp: Layer, x, cfg: ModelConfig, prev_tok, wkv_state):
     def mix(mu):
         return x + (xs - x) * mu.to(dt)
 
-    r = F.linear(mix(lp.mu_r), lp.r_proj)
-    k = F.linear(mix(lp.mu_k), lp.k_proj)
-    v = F.linear(mix(lp.mu_v), lp.v_proj)
-    g = F.silu(F.linear(mix(lp.mu_g), lp.g_proj))
+    r = F.linear(mix(lp.mu_r), layers._cast(lp.r_proj, x))
+    k = F.linear(mix(lp.mu_k), layers._cast(lp.k_proj, x))
+    v = F.linear(mix(lp.mu_v), layers._cast(lp.v_proj, x))
+    g = F.silu(F.linear(mix(lp.mu_g), layers._cast(lp.g_proj, x)))
     w = _decay(lp, mix(lp.mu_w), dt)
 
     def heads(z):
@@ -177,7 +193,7 @@ def _time_mix(lp: Layer, x, cfg: ModelConfig, prev_tok, wkv_state):
         new_state = None
     o = o.reshape(b, nh, t, hd).transpose(1, 2).reshape(b, t, d)
     o = layers.layernorm(o, lp.gn, lp.gn_b, cfg.norm_eps)
-    return F.linear(o * g, lp.out_proj), x[:, -1], new_state
+    return F.linear(o * g, layers._cast(lp.out_proj, x)), x[:, -1], new_state
 
 
 def _channel_mix(lp: Layer, x, prev_tok, dt):
@@ -185,33 +201,53 @@ def _channel_mix(lp: Layer, x, prev_tok, dt):
     xs = _shift(x, prev_tok)
     xr = x + (xs - x) * lp.cmu_r.to(dt)
     xk = x + (xs - x) * lp.cmu_k.to(dt)
-    kk = torch.square(torch.relu(F.linear(xk, lp.ck_proj)))
-    out = torch.sigmoid(F.linear(xr, lp.cr_proj)) * F.linear(kk, lp.cv_proj)
+    kk = torch.square(torch.relu(F.linear(xk, layers._cast(lp.ck_proj, x))))
+    out = torch.sigmoid(F.linear(xr, layers._cast(lp.cr_proj, x))) * \
+        F.linear(kk, layers._cast(lp.cv_proj, x))
     return out, x[:, -1]
 
 
-def forward(params: RWKV6, tokens, cfg: ModelConfig, *,
+def _train_layer(lp: Layer, x, cfg: ModelConfig):
+    """One layer of the stateless forward: x (B, T, d) -> x."""
+    zeros_tok = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    h = layers.rmsnorm(x, lp.ln1, cfg.norm_eps)
+    x = x + _time_mix(lp, h, cfg, zeros_tok, None)[0]
+    h = layers.rmsnorm(x, lp.ln2, cfg.norm_eps)
+    return x + _channel_mix(lp, h, zeros_tok, x.dtype)[0]
+
+
+def forward(params: RWKV6, tokens, cfg: ModelConfig, *, remat: str = "none",
             return_state: bool = False):
     """The final-normed hidden states (B, T, d) of tokens (B, T) and, with
-    ``return_state``, the :class:`RWKVState` after the last token."""
+    ``return_state``, the :class:`RWKVState` after the last token.  The
+    stateless forward (training) checkpoints each layer under ``remat``
+    (``layers.REMAT_POLICIES``); the stateful one (prefill) takes none."""
     x = layers.embed_tokens(params, tokens, cfg)
+    if not return_state:
+        layer = layers.remat(_train_layer, remat)
+        for lp in params.layers:
+            x = layer(lp, x, cfg)
+        return layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
     b, t, d = x.shape
     zeros_tok = torch.zeros((b, d), dtype=x.dtype, device=x.device)
-    state = init_state(cfg, b, device=x.device) if return_state else None
+    state = init_state(cfg, b, device=x.device)
     for i, lp in enumerate(params.layers):
         h = layers.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        wkv0 = state.wkv[i] if return_state else None      # zeros
-        o, tm, wkv = _time_mix(lp, h, cfg, zeros_tok, wkv0)
+        o, state.tm[i], state.wkv[i] = _time_mix(lp, h, cfg, zeros_tok,
+                                                 state.wkv[i])
         x = x + o
         h = layers.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        o, cm = _channel_mix(lp, h, zeros_tok, x.dtype)
+        o, state.cm[i] = _channel_mix(lp, h, zeros_tok, x.dtype)
         x = x + o
-        if return_state:
-            state.tm[i] = tm
-            state.cm[i] = cm
-            state.wkv[i] = wkv
-    x = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return (x, state) if return_state else x
+    return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), state
+
+
+def loss_fn(params: RWKV6, batch, cfg: ModelConfig, *, remat: str = "none"):
+    """The chunked LM loss, a float32 scalar.  ``batch``: ``tokens`` and
+    ``labels`` (B, T) int, labels -100 ignored."""
+    x = forward(params, batch["tokens"], cfg, remat=remat)
+    return layers.chunked_lm_loss(params, x, batch["labels"], cfg)
 
 
 def prefill(params: RWKV6, tokens, cfg: ModelConfig, **_):

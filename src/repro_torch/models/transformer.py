@@ -9,8 +9,8 @@ written in place.  The moe family (Qwen2-MoE, Qwen3-MoE) runs here too: a
 layer holds a :class:`~repro_torch.models.moe.MoE` in place of its dense
 MLP when ``cfg.n_experts > 0``.  A model made with ``master=torch.float32``
 trains: float32 masters that require grad, cast to the compute type at
-each use.  ``REMAT_POLICIES`` name what a layer's checkpoint keeps, as
-the JAX package's ``jax.checkpoint`` policies do.  The VLM branch waits
+each use.  ``layers.REMAT_POLICIES`` name what a layer's checkpoint keeps,
+as the JAX package's ``jax.checkpoint`` policies do.  The VLM branch waits
 for the VLM frontend (ROADMAP queue 1, item 14, slice 4).
 """
 from __future__ import annotations
@@ -20,7 +20,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
@@ -28,17 +27,6 @@ from repro_torch.models.layers import KVCache
 
 
 FAMILIES = ("dense", "moe")
-_aten = torch.ops.aten
-# remat -> None (no checkpoint), () (a checkpoint that keeps nothing: the
-# layer's forward reruns in the backward) or the ops whose outputs a
-# selective checkpoint keeps: the matrix products (JAX's ``checkpoint_dots``)
-# or those without batch dims (``checkpoint_dots_with_no_batch_dims``).
-REMAT_POLICIES = {
-    "none": None,
-    "full": (),
-    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
-    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
-}
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -144,30 +132,11 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return model
 
 
-def _layer_fn(remat: str):
-    """The layer call under ``remat``: ``Block.train_forward`` itself, or
-    it under a checkpoint that keeps nothing (``full``) or the outputs of
-    the matrix products (``dots``, ``dots_no_batch``).  Any recomputed
-    forward reruns the attention kernel."""
-    if remat not in REMAT_POLICIES:
-        raise ValueError(f"unknown remat {remat!r}; options: "
-                         f"{sorted(REMAT_POLICIES)}")
-    keep = REMAT_POLICIES[remat]
-    if keep is None:
-        return lambda blk, x, pos: blk.train_forward(x, pos)
-    kw = dict(use_reentrant=False, preserve_rng_state=False)
-    if keep:
-        kw["context_fn"] = functools.partial(
-            ckpt.create_selective_checkpoint_contexts, list(keep))
-    return lambda blk, x, pos: ckpt.checkpoint(blk.train_forward, x, pos,
-                                               **kw)
-
-
 def forward(params: Transformer, tokens, cfg: ModelConfig, *,
             remat: str = "none"):
     """The final hidden states (B, S, d_model), after the final norm, and
     the layers' summed aux loss (float32; 0 for a dense model)."""
-    layer = _layer_fn(remat)
+    layer = layers.remat(Block.train_forward, remat)
     x = layers.embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

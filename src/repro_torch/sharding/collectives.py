@@ -42,6 +42,7 @@ COLLECTIVES = ("pmin", "compressed")
 
 # Wire format of one candidate entry: int32 index lane + the value lane.
 INDEX_BYTES = 4
+FLT_MIN = 2.0 ** -126           # the smallest normal float32
 
 
 def resolve_collective(collective: str) -> str:
@@ -132,17 +133,26 @@ def dense_bytes(n: int, num_shards: int, value_bytes: int) -> int:
     return int(2 * (num_shards - 1) * n * value_bytes // num_shards)
 
 
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values as zeros of their sign (ROADMAP hazard
+    H16): XLA reads and writes float32 with denormals flushed on the CPU
+    (DAZ and FTZ), as the TPU does, and PyTorch keeps them."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
 def compress_tree(grads: Mapping[str, torch.Tensor],
                   residual: Optional[Mapping[str, torch.Tensor]]):
     """bf16 compression with error feedback: each gradient plus its float32
     residual (zeros when ``residual`` is None), rounded to bf16 (to nearest
     even, as ``astype`` rounds), and what the rounding dropped as the next
-    residual.  Returns ``(compressed, residual)``, two dicts of
-    ``grads``' keys."""
+    residual.  Subnormal gradients, residuals, sums and new residuals are
+    zeros of their sign, as the reference computes them (:func:`_flush`).
+    Returns ``(compressed, residual)``, two dicts of ``grads``' keys."""
     comp, res = {}, {}
     for name, g in grads.items():
         # + 0.0 as the reference adds its zeros: -0.0 becomes +0.0
-        gf = g.float() + (0.0 if residual is None else residual[name])
+        gf = _flush(_flush(g.float()) + (0.0 if residual is None
+                                         else _flush(residual[name])))
         comp[name] = gf.to(torch.bfloat16)
-        res[name] = gf - comp[name].float()
+        res[name] = _flush(gf - comp[name].float())
     return comp, res

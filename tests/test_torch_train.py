@@ -1,12 +1,15 @@
-"""The port's training path of the transformer families held against the
-JAX package's, in float32 on the CPU: the loss and every gradient of the
-six dense and MoE archs' smoke models, remat, gradient accumulation,
-AdamW, the attention's explicit backward, the launcher, and the families
-whose training waits.
+"""The port's training path held against the JAX package's, in float32 on
+the CPU: the loss and every gradient of the smoke models of the six dense
+and MoE archs, RWKV6 and Jamba, remat, gradient accumulation, AdamW, the
+attention's explicit backward, the launcher, and the families whose
+training waits.
 
 The JAX model differentiates ``ref.attention`` (hazard H5 in ROADMAP.md),
 the port runs its attention Function: the plain forward on the CPU, then
-``kernels/flash_attention/backward.py``.  Tolerances: the loss within 1e-5
+``kernels/flash_attention/backward.py``; likewise the JAX RWKV6 and Jamba
+differentiate their jnp scans, and the port runs the ``WKV6`` and
+``SelectiveScan`` Functions (``tests/test_torch_train_recurrent.py``
+checks those alone).  Tolerances: the loss within 1e-5
 relative (float32 sums of 2,048 terms taken in another order); each
 gradient leaf within 1e-4 × max(1, max |g|) of that leaf; remat variants
 within 1e-6 of no remat (the same arithmetic, recomputed); AdamW's
@@ -31,6 +34,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import backward as attn_bwd
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention import ref as attn_ref
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.launch import train as train_launch
 from repro_torch.models import api, convert, transformer
 from repro_torch.train import optimizer as opt
@@ -38,7 +43,8 @@ from repro_torch.train.train_step import (TrainHParams, init_train_state,
                                           make_eval_step, make_train_step)
 
 ARCHS = ["qwen1.5-0.5b", "qwen2.5-14b", "qwen2.5-32b", "phi3-mini-3.8b",
-         "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"]
+         "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "rwkv6-3b",
+         "jamba-v0.1-52b"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 REMAT_TOL = 1e-6
@@ -181,6 +187,37 @@ def test_remat_matches_no_remat(ref, monkeypatch, arch, remat):
         assert float((g1[n] - g0[n]).abs().max()) <= REMAT_TOL, n
 
 
+# family -> {the plain call a kernel's wrapper takes on the CPU: calls a
+# forward}, in the smoke model of one superblock or two layers
+RECURRENT = {
+    "rwkv6-3b": {(wkv_ops, "_wkv6"): 2},
+    "jamba-v0.1-52b": {(scan_ops, "_selective_scan"): 7,
+                       (attn_ops, "flash_attention"): 1},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_recurrent_remat_matches_no_remat(ref, monkeypatch, arch):
+    """RWKV6 under a checkpoint a layer and Jamba under one a superblock
+    (``full``) give no remat's loss and gradients; the recomputed forward
+    reruns K9 (K8 and K6), so each runs twice its calls."""
+    _, cfg, params, batch, _, _ = _grads(ref, arch)
+    model = convert.from_reference(params, cfg, device="cpu", train=True)
+    calls = {}
+    for (mod, name) in RECURRENT[arch]:
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name, **kw: (
+            calls.__setitem__(_n, calls.get(_n, 0) + 1), _o(*a, **kw))[1])
+    loss0, g0 = _port_grads(model, cfg, _tensors(batch))
+    n0 = dict(calls)
+    loss1, g1 = _port_grads(model, cfg, _tensors(batch), remat="full")
+    for (_, name), per in RECURRENT[arch].items():
+        assert n0[name] == per and calls[name] - n0[name] == 2 * per, calls
+    assert abs(float(loss1) - float(loss0)) <= REMAT_TOL
+    for n in g0:
+        assert float((g1[n] - g0[n]).abs().max()) <= REMAT_TOL, n
+
+
 def test_unknown_remat_raises():
     cfg = get_config("qwen1.5-0.5b", True)
     state = init_train_state(torch.Generator().manual_seed(0), cfg)
@@ -269,6 +306,21 @@ def test_adamw_matches_reference_over_three_steps(ref):
         for k in ("m", "v"):
             _assert_tree_close(convert.to_reference(state[k], cfg),
                                _np_tree(ref, rstate[k]), ADAMW_TOL)
+
+
+def test_global_norm_of_large_gradients_matches_reference(ref):
+    """Hazard H17: the global norm of 2²⁴ + 2²⁰ float32 values of spread
+    magnitudes equals the JAX package's ``global_norm`` within 1e-6
+    relative (a float32 running sum on the CPU was 1.5e-4 off here)."""
+    rng = np.random.default_rng(6)
+    grads = dict(big=rng.standard_normal(1 << 24).astype(np.float32),
+                 small=(rng.standard_normal(1 << 20) * 30).astype(np.float32))
+    grads["big"][:4096] *= 100
+    want = float(ref.opt.global_norm({k: ref.jnp.asarray(v)
+                                      for k, v in grads.items()}))
+    got = opt.global_norm([torch.from_numpy(v) for v in grads.values()])
+    assert got.dtype == torch.float32
+    assert abs(float(got) - want) <= 1e-6 * want
 
 
 def test_adamw_decreases_loss():
@@ -387,19 +439,15 @@ def test_train_input_specs_match_reference(ref):
 
 
 @pytest.mark.parametrize("arch,slice_", [
-    ("rwkv6-3b", "item 14, slice 3b"), ("jamba-v0.1-52b", "item 14, slice 3b"),
     ("seamless-m4t-large-v2", "item 14, slice 4"),
     ("internvl2-2b", "item 14, slice 4")])
 def test_families_that_wait_raise(arch, slice_):
-    """RWKV6's and Jamba's ``loss_fn`` name slice 3b; the encoder–decoder
-    and VLM families are not ported at all yet (slice 4)."""
+    """The encoder–decoder and VLM families are not ported at all yet
+    (slice 4)."""
     cfg = get_config(arch, True)
     batch = api.synth_batch(0, cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match=re.escape(slice_)):
         api.get_model(cfg).loss_fn(None, batch, cfg)
-    if slice_.endswith("3b"):
-        with pytest.raises(NotImplementedError, match=re.escape(slice_)):
-            convert.from_reference({}, cfg, device="cpu", train=True)
 
 
 def test_eval_step_runs_without_grad():

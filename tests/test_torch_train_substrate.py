@@ -92,6 +92,45 @@ def test_compress_tree_bit_for_bit(ref):
                                   np.asarray(res_j[k]).view(np.int32)), k
 
 
+def _subnormal_tree(seed):
+    """float32 gradients and residuals whose inputs, sums or new residuals
+    are subnormal: 2⁻¹²⁰·(1 + 2⁻⁹) (a residual of 2⁻¹²⁹), ±1e-39,
+    ±2⁻¹²⁶·(1 + 2⁻¹⁰) (a residual of ∓2⁻¹³⁶), the smallest subnormals,
+    normal pairs whose sum is subnormal, and signed zeros, each beside
+    every residual of the list."""
+    vals = np.array([2.0 ** -120 * (1 + 2.0 ** -9), 1e-39, -1e-39,
+                     2.0 ** -126 * (1 + 2.0 ** -10),
+                     -2.0 ** -126 * (1 + 2.0 ** -10), 2.0 ** -149,
+                     -2.0 ** -149, 2.0 ** -125, -2.0 ** -126 * 1.125, 0.0,
+                     -0.0, 1.0], np.float32)
+    g, r = np.meshgrid(vals, vals)
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(g.size)
+    return (dict(w=g.reshape(-1)[perm].copy()),
+            dict(w=r.reshape(-1)[perm].copy()))
+
+
+def test_compress_tree_flushes_subnormals(ref):
+    """Hazard H16: subnormal inputs, sums and residuals are zeros of their
+    sign, as the JAX package's ``compress_tree`` gives them on the CPU, bit
+    for bit over two rounds: the first with subnormal residuals given, the
+    second with the first's residuals."""
+    _, r = _subnormal_tree(0)
+    res_t = {k: torch.from_numpy(v) for k, v in r.items()}
+    res_j = {k: ref.jnp.asarray(v) for k, v in r.items()}
+    for seed in (0, 1):
+        g, _ = _subnormal_tree(seed)
+        comp_t, res_t = compress_tree(
+            {k: torch.from_numpy(v) for k, v in g.items()}, res_t)
+        comp_j, res_j = ref.coll.compress_tree(
+            {k: ref.jnp.asarray(v) for k, v in g.items()}, res_j)
+        for k in g:
+            assert np.array_equal(comp_t[k].view(torch.int16).numpy(),
+                                  np.asarray(comp_j[k]).view(np.int16)), k
+            assert np.array_equal(res_t[k].numpy().view(np.int32),
+                                  np.asarray(res_j[k]).view(np.int32)), k
+
+
 def test_grad_compression_error_feedback():
     """``tests/test_substrate.py``'s check on the port: compressed plus
     residual reconstructs the gradient."""
