@@ -246,7 +246,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       (e)'s and (f)'s shapes and types, within the tolerances of (a); each
       backward's time a layer beside the kernel's forward, the plain
       version's forward plus backward and a bound;
-10. one ``{"kernels": [...]}`` line, the card line, and last the result
+10. the encoder-decoder (SeamlessM4T-large v2) and VLM (InternVL2-2B)
+   families at their full configs:
+   a. K6 with a key length of its own, non-causal, at SeamlessM4T's
+      cross-attention shapes (batch 8, 16 heads, hd 64, S_q 1024 over
+      S_kv 1024, 1536 and 777), in float32 and bf16, against its plain
+      version, timed beside it, ``scaled_dot_product_attention`` and the
+      bound;
+   b. ``serve_lm.main`` on each at batch 8, prompt 1024 (1024 frames for
+      the encoder, 256 patch positions before InternVL2's prompt), 32
+      tokens, the decode loop under sync debug mode "error": K6 72 times a
+      SeamlessM4T prefill (24 encoder, 24 self, 24 cross) and K7 48 times
+      a decode step; InternVL2 one K6 a layer, one K7 a layer and step;
+   c. two layers of each (two of each stack for SeamlessM4T) at full
+      width in float32, card against CPU as in 6c, through
+      ``make_prefill_step`` with the frontend embeddings;
+   d. the attention Function as in 9a at InternVL2's layer (16 over 8
+      heads, hd 128) at S = 4096, batch 2, where its backward runs in
+      query blocks of 512;
+   e. ``make_train_step`` on InternVL2-2B (1,280 positions, so the
+      blocked backward at every layer) and on SeamlessM4T-large v2 (S_enc
+      = S_dec = 1024) at their full configs, bf16 compute, float32
+      masters, AdamW, remat ``full``, batch 8, seq 1024, three steps on
+      one batch: the loss finite and falling, K6 twice a forward's count a
+      step, the host syncs of steps 2-3 counted, step 2 timed by events,
+      step 3 profiled (device time by kind from the raw events), ``mfu``
+      and peak memory;
+11. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
@@ -396,6 +422,22 @@ TRAIN_LOSS_RTOL = 1e-5
 # over n), so it is expected to agree to the bit (error 0).
 SCAN_F32_TOL = 1e-4
 SCAN_BF16_REL = 2.0 ** -6
+# Phase 10, the encoder-decoder and VLM families at their full configs:
+# served at LM_BATCH and LM_PROMPT (SeamlessM4T encodes LM_PROMPT frames),
+# FAMILY_GEN tokens; K6 at SeamlessM4T's cross-attention shapes (S_q
+# LM_PROMPT over CROSS_SKV keys); the attention Function at InternVL2's
+# layer (16 over 8 heads, hd 128) at the JAX package's train_4k length,
+# batch 2, and at SeamlessM4T's cross-attention (16 heads, hd 64) over
+# CROSS_TRAIN_SKV keys, S_q LM_PROMPT at LM_BATCH and 2048 (the backward
+# in query blocks) at batch 2; FAMILY_TRAIN_STEPS train steps of each at
+# TRAIN_BATCH, TRAIN_SEQ.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "internvl2-2b"
+FAMILY_GEN = 32
+CROSS_SKV = (1024, 1536, 777)
+LONG_ATTN = (2, 16, 8, 4096, 128)
+CROSS_TRAIN_SKV = 777
+FAMILY_TRAIN_STEPS = 3
 
 
 _T0 = time.perf_counter()
@@ -2222,28 +2264,33 @@ def phase_serve(torch, record) -> dict:
 
 
 def phase_parity(torch, dev, record, arch, want, **overrides) -> None:
-    """Phases 6c, 7c and 8c: ``arch``'s width at PARITY_LAYERS layers in
-    float32 (``overrides`` replace fields of that config), on the card with
-    the kernels and on the CPU with the plain versions, from the same
-    weights, teacher-forced on the CPU's greedy tokens.  ``want`` is the
+    """Phases 6c, 7c, 8c and 10c: ``arch``'s width at PARITY_LAYERS layers
+    in float32 (``overrides`` replace fields of that config), on the card
+    with the kernels and on the CPU with the plain versions, from the same
+    weights and ``synth_batch`` prompts (with the frontend embeddings of
+    the encdec and vlm families), through ``make_prefill_step`` and
+    ``make_decode_step``, teacher-forced on the CPU's greedy tokens.  ``want`` is the
     run's launch count of each kernel it uses; a state with a ``wkv`` or an
     ``ssm`` field also has its prefill error reported."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import api
-    from repro_torch.train.serve_step import pick
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step, pick)
     cfg = dataclasses.replace(get_config(arch), **dict(
         dict(n_layers=PARITY_LAYERS, compute_dtype="float32"), **overrides))
     model = api.get_model(cfg)
     card = model.init(torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
     cpu = type(card)(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
-    tokens = api.synth_batch(LM_SEED, cfg, PARITY_BATCH, PARITY_PROMPT,
-                             device="cpu")["tokens"]
-    max_len = PARITY_PROMPT + PARITY_GEN
+    batch = api.synth_batch(LM_SEED, cfg, PARITY_BATCH, PARITY_PROMPT,
+                            device="cpu")
+    del batch["labels"]
+    prefill = make_prefill_step(cfg, max_len=PARITY_PROMPT + PARITY_GEN)
+    decode = make_decode_step(cfg)
     kernels.reset_launches()
-    want_logits, cstate = model.prefill(cpu, tokens, cfg, max_len=max_len)
-    got, gstate = model.prefill(card, tokens.to(dev), cfg, max_len=max_len)
+    want_logits, cstate = prefill(cpu, batch)
+    got, gstate = prefill(card, {k: v.to(dev) for k, v in batch.items()})
     state, state_err = "", None
     for field in ("wkv", "ssm"):
         if hasattr(cstate, field):
@@ -2256,8 +2303,8 @@ def phase_parity(torch, dev, record, arch, want, **overrides) -> None:
     errs, compared = [], 0
     for step in range(PARITY_GEN):
         if step:
-            want_logits, cstate = model.decode_step(cpu, cstate, nxt, cfg)
-            got, gstate = model.decode_step(card, gstate, nxt.to(dev), cfg)
+            _, cstate, want_logits = decode(cpu, cstate, nxt)
+            _, gstate, got = decode(card, gstate, nxt.to(dev))
         errs.append(float((got.cpu() - want_logits).abs().max()))
         top2 = want_logits[:, -1].topk(2, dim=-1).values
         sure = (top2[:, 0] - top2[:, 1]) > PARITY_TOL
@@ -2830,37 +2877,41 @@ def phase_hybrid_serve(torch, record) -> dict:
 def _attn_train_cost(q, k, causal: bool):
     """(bytes, operations) of attention's forward and backward: q, k, v, o
     once in the forward; q, k, v, o, dO read and dQ, dK, dV written once
-    in the backward; 2 products forward and 5 backward of 2·B·Hq·S²·D
+    in the backward; 2 products forward and 5 backward of 2·B·Hq·S·S_kv·D
     operations each, halved when causal."""
     b, hq, s, d = q.shape
     half = 0.5 if causal else 1.0
     nbytes = q.element_size() * (6 * q.numel() + 6 * k.numel())
-    return nbytes, int(7 * 2 * b * hq * s * s * d * half)
+    return nbytes, int(7 * 2 * b * hq * s * k.shape[2] * d * half)
 
 
-def phase_train_attention(torch, dev, record) -> list:
+def phase_train_attention(torch, dev, record, cases=None,
+                          key: str = "attention") -> list:
     """Phase 9a: the attention Function of the training path (K6 forward,
     ``backward.py``'s explicit backward) against autograd through the
     plain version, at Qwen1.5-0.5B's layer, Qwen2.5-14B's GQA shape and
-    S = 77 non-causal, in float32 and bf16: dQ, dK and dV within the
-    tolerances above, K6 launched once a forward; forward plus backward
-    timed beside the plain version's and ``scaled_dot_product_attention``'s
-    and the bound.  Returns the rows."""
+    S = 77 non-causal (or ``cases``: (label, (B, Hq, Hkv, S, D[, S_kv]),
+    causal), S_kv keys where given, else S), in float32 and bf16: dQ, dK and dV within the tolerances above, K6
+    launched once a forward; forward plus backward timed beside the plain
+    version's and ``scaled_dot_product_attention``'s and the bound.  The
+    rows go to ``record["train"][key]``; returns them."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import backward as attn_bwd
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.flash_attention import ref as attn_ref
-    cases = ((f"{LM_ARCH} layer", (LM_BATCH, 16, 16, LM_PROMPT, 64), True),
-             (f"{GQA_ARCH} GQA", (GQA_BATCH, 40, 8, LM_PROMPT, 128), True),
-             ("S 77, not causal", (2, 16, 16, 77, 64), False))
+    cases = cases or (
+        (f"{LM_ARCH} layer", (LM_BATCH, 16, 16, LM_PROMPT, 64), True),
+        (f"{GQA_ARCH} GQA", (GQA_BATCH, 40, 8, LM_PROMPT, 128), True),
+        ("S 77, not causal", (2, 16, 16, 77, 64), False))
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     rows = []
-    for label, (b, hq, hkv, s, d), causal in cases:
+    for label, (b, hq, hkv, s, d, *rest), causal in cases:
+        skv = rest[0] if rest else s
         for dtype in (torch.float32, torch.bfloat16):
             q = _randn(torch, gen, (b, hq, s, d), dtype).requires_grad_()
-            k = _randn(torch, gen, (b, hkv, s, d), dtype).requires_grad_()
-            v = _randn(torch, gen, (b, hkv, s, d), dtype).requires_grad_()
+            k = _randn(torch, gen, (b, hkv, skv, d), dtype).requires_grad_()
+            v = _randn(torch, gen, (b, hkv, skv, d), dtype).requires_grad_()
             do = _randn(torch, gen, (b, hq, s, d), dtype)
 
             def kernel():
@@ -2898,9 +2949,11 @@ def phase_train_attention(torch, dev, record) -> list:
             o = attn_ops.attention(q.detach(), k.detach(), v.detach(),
                                    causal=causal)
             ms = _time_ms(torch, kernel, 10)
+            chunk = (attn_ops._pick_chunk(s, attn_ops.Q_CHUNK)
+                     if s > attn_ops.BLOCK_ABOVE else None)
             bwd_ms = _time_ms(torch, lambda: attn_bwd.attention_backward(
-                q.detach(), k.detach(), v.detach(), o, do, causal=causal),
-                10)
+                q.detach(), k.detach(), v.detach(), o, do, causal=causal,
+                q_chunk=chunk), 10)
             plain_ms = _time_ms(torch, plain, 3, warmup=1)
             try:
                 library_ms = _time_ms(torch, library, 10)
@@ -2912,13 +2965,14 @@ def phase_train_attention(torch, dev, record) -> list:
                 else INT_OPS_PER_S
             bound_ms, bound_by = _bound_ms(nbytes, nops, rate)
             row = dict(case=label, dtype=str(dtype).split(".")[1],
-                       shape=[b, hq, hkv, s, d], causal=causal,
+                       shape=[b, hq, hkv, s, d, skv], causal=causal,
                        err_over_tol=errs, ms=ms, backward_ms=bwd_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
             _log(f"attention forward+backward [{label}, {row['dtype']}, "
-                 f"(B, Hq, Hkv, S, D) {tuple(row['shape'])}]: err/tol "
+                 f"(B, Hq, Hkv, S, D, S_kv) {tuple(row['shape'])}]: "
+                 f"err/tol "
                  f"{ {k_: round(v_, 4) for k_, v_ in errs.items()} }; "
                  f"{ms:.4f} ms (backward alone {bwd_ms:.4f}), plain "
                  f"{plain_ms:.4f}, sdpa "
@@ -2926,7 +2980,7 @@ def phase_train_attention(torch, dev, record) -> list:
                  f", bound {bound_ms:.4f} ({bound_by})")
             del q, k, v, do, o, got, want
             torch.cuda.empty_cache()
-    record.setdefault("train", {})["attention"] = rows
+    record.setdefault("train", {})[key] = rows
     return rows
 
 
@@ -3510,6 +3564,291 @@ def phase_train_functions(torch, dev, record) -> dict:
         torch.cuda.empty_cache()
     record.setdefault("train", {})["functions"] = out
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the encoder-decoder (SeamlessM4T) and VLM (InternVL2) families
+# ---------------------------------------------------------------------------
+
+def _cross_cost(q, k, v):
+    """(bytes, operations) of non-causal attention: q, k, v and o each
+    once; 4·B·Hq·S·S_kv·D operations (both products whole)."""
+    b, hq, s, d = q.shape
+    es = q.element_size()
+    return (es * (2 * q.numel() + 2 * k.numel()),
+            4 * b * hq * s * k.shape[2] * d)
+
+
+def phase_cross_attention(torch, dev, record) -> dict:
+    """Phase 10a: K6 with a key length of its own, non-causal, at
+    SeamlessM4T's cross-attention shapes (batch 8, 16 heads, hd 64, S_q
+    1024 over S_kv in CROSS_SKV; 777 ends in a partial tile), in float32
+    and bf16: held against its plain version within the tolerances of 6a
+    and timed beside it, ``scaled_dot_product_attention`` and the bound.
+    Returns {case: timing}."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    cfg = get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=False)
+
+    def plain(q, k, v):
+        return fa.flash_attention_plain(q, k, v, causal=False)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+
+    out = {}
+    for skv in CROSS_SKV:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn(torch, gen, (LM_BATCH, cfg.n_heads, LM_PROMPT, cfg.hd),
+                       dtype)
+            k, v = (_randn(torch, gen, (LM_BATCH, cfg.n_kv_heads, skv,
+                                        cfg.hd), dtype) for _ in "kv")
+            name = f"{str(dtype).split('.')[1]} S_kv {skv}"
+            err = _attn_check(torch, "flash_attention", kernel, plain,
+                              f"cross-attention S_kv {skv}", (q, k, v), {})
+            t = _attn_timing(torch, kernel, plain, library, [(q, k, v)],
+                             _cross_cost)
+            t["max_abs_err"] = err
+            out[name] = t
+            _log(f"  flash_attention cross [{name}, q {tuple(q.shape)}]: "
+                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa "
+                 f"{t['library_ms']:.4f} ({t['library_ratio']:.2f}x), bound "
+                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
+            del q, k, v
+    torch.cuda.empty_cache()
+    record["cross_attention"] = out
+    return out
+
+
+def phase_family_serve(torch, dev, record) -> dict:
+    """Phase 10b: ``serve_lm.main`` on SeamlessM4T-large v2 and on
+    InternVL2-2B at their full configs, bf16, batch 8, prompt 1024 (1024
+    frames for the encoder; 256 patch positions before InternVL2's
+    prompt), FAMILY_GEN tokens, the decode loops under sync debug mode
+    "error": K6 72 times a SeamlessM4T prefill (24 encoder, 24 self, 24
+    cross) and K7 48 times a decode step; InternVL2 one K6 a layer and one
+    K7 a layer and step; then a profiler window over each one's prefill
+    and over decode steps (``_family_profiles``).  Returns {arch: the
+    run's launch counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    out = {}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        cfg = get_config(arch)
+        want = None
+        if cfg.family == "encdec":
+            want = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+                    "decode_attention": 2 * cfg.n_layers * (FAMILY_GEN - 1)}
+        run = _serve_run(
+            torch, arch, cfg, LM_BATCH, FAMILY_GEN,
+            lambda: serve_lm.main(["--arch", arch, "--batch", str(LM_BATCH),
+                                   "--prompt-len", str(LM_PROMPT), "--gen",
+                                   str(FAMILY_GEN), "--seed", str(LM_SEED)]),
+            want)
+        run["params"] = cfg.param_count()
+        run.update(_family_profiles(torch, dev, arch))
+        record["serve"][arch] = run
+        out[arch] = run["launches"]
+    return out
+
+
+def _family_profiles(torch, dev, arch) -> dict:
+    """The served run's weights and prompts again (``serve_lm.serve``
+    draws them so): one profiler window over a prefill, the prefill's
+    host time without the profiler, and one window over
+    PROFILE_DECODE_STEPS decode steps, through ``make_prefill_step`` and
+    ``make_decode_step``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step, pick)
+    cfg = get_config(arch)
+    params = api.get_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(LM_SEED), cfg)
+    batch = api.synth_batch(LM_SEED, cfg, LM_BATCH, LM_PROMPT, device=dev)
+    del batch["labels"]
+    prefill = make_prefill_step(cfg,
+                                max_len=LM_PROMPT + PROFILE_DECODE_STEPS + 1)
+    decode = make_decode_step(cfg)
+    out = dict(profile_prefill=_profile_window(
+        torch, lambda: prefill(params, batch),
+        f"prefill {arch} {LM_BATCH}x{LM_PROMPT}",
+        f"chip_smoke_profile_prefill_{arch}.txt", ("flash_kernel",)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch)
+    torch.cuda.synchronize()
+    out["prefill_warm_s"] = time.perf_counter() - t0
+    first = pick(logits)[:, None]
+
+    def decode_steps():
+        st, nxt = state, first
+        for _ in range(PROFILE_DECODE_STEPS):
+            nxt, st, _ = decode(params, st, nxt)
+    out["profile_decode"] = _profile_window(
+        torch, decode_steps, f"{PROFILE_DECODE_STEPS} decode steps {arch} "
+        f"batch {LM_BATCH}", f"chip_smoke_profile_decode_{arch}.txt",
+        ("decode_kernel",))
+    _log(f"serve {arch}: a second prefill without the profiler "
+         f"{out['prefill_warm_s']:.4f} s (host clock)")
+    del params, batch, logits, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_family(torch, dev, record, arch, per_step, flops,
+                       flops_note) -> dict:
+    """Phases 10d and 10e: ``arch`` at its full config, bf16 compute,
+    float32 masters, AdamW (warm-up of one step), remat ``full``, batch
+    TRAIN_BATCH, seq TRAIN_SEQ (``synth_batch``, with the frontend's
+    embeddings), FAMILY_TRAIN_STEPS steps of ``make_train_step`` on one
+    batch: the loss finite and falling, K6 ``per_step`` times a step; the
+    steps after the first under sync debug mode "warn" (host syncs
+    counted), step 2's time by CUDA events, and the last step profiled,
+    its device time by kind from the raw events (``_device_breakdown``);
+    ``mfu`` against ``flops(n_params)`` a step.  Returns the run's
+    record."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (TrainHParams, init_train_state,
+                                              make_train_step)
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(LM_SEED),
+                             cfg)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    batch = api.synth_batch(LM_SEED, cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    step = make_train_step(cfg, TrainHParams(
+        remat="full", adamw=opt.AdamWConfig(warmup_steps=1)))
+    kernels.reset_launches()
+    losses, ends, counts = [], [], []
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    losses.append(m["loss"])
+    counts.append(kernels.LAUNCHES["flash_attention"])
+    ends.append(torch.cuda.Event(enable_timing=True))
+    ends[-1].record()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(1, FAMILY_TRAIN_STEPS):
+                last = i == FAMILY_TRAIN_STEPS - 1
+                if last:
+                    prof.start()
+                    t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+                counts.append(kernels.LAUNCHES["flash_attention"])
+                ends.append(torch.cuda.Event(enable_timing=True))
+                ends[-1].record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    prof.stop()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, batch, m
+    torch.cuda.empty_cache()
+    vals = [float(x) for x in losses]
+    steps_k = [b - a for a, b in zip([0] + counts[:-1], counts)]
+    step_ms = [ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))]
+    kinds, names = _device_breakdown(prof)
+    busy_ms = sum(ms for ms, _ in kinds.values())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_flops = flops(n_params)
+    bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+    for kind, (ms, n) in kinds.items():
+        _log(f"  train {arch} step {FAMILY_TRAIN_STEPS} device time: {kind} "
+             f"{ms:.3f} ms over {n} ops")
+    for name, (ms, n) in list(names.items())[:6]:
+        _log(f"  train {arch} step {FAMILY_TRAIN_STEPS} device op "
+             f"{name[:70]!r}: {ms:.3f} ms x{n}")
+    _log(f"train {arch} (full config, {n_params} parameters; bf16, float32 "
+         f"masters, AdamW, remat full, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}"
+         f"): losses {[round(x, 4) for x in vals]}; step ms (events) "
+         f"{[round(x, 3) for x in step_ms]} (step 1 {first_s:.2f} s, host "
+         f"clock); K6 a step {steps_k}; host syncs in steps 2-"
+         f"{FAMILY_TRAIN_STEPS}: {syncs}; peak {peak:.2f} GiB; "
+         f"{tokens / step_ms[0] * 1e3:.1f} tok/s; bound {bound_ms:.3f} ms "
+         f"({flops_note}, at 989 TFLOP/s), mfu {bound_ms / step_ms[0]:.4f};"
+         f" step {FAMILY_TRAIN_STEPS}'s device busy {busy_ms:.3f} ms over "
+         f"a {window_s * 1e3:.3f} ms profiled window")
+    if not all(math.isfinite(x) for x in vals) or vals[-1] >= vals[0]:
+        raise AssertionError(f"train {arch}: losses {vals}")
+    if set(steps_k) != {per_step}:
+        raise AssertionError(f"train {arch}: K6 launches a step {steps_k}, "
+                             f"expected {per_step}")
+    out = dict(losses=vals, step_ms=step_ms, first_step_s=first_s,
+               tokens_per_s=tokens / step_ms[0] * 1e3, peak_gib=peak,
+               params=n_params, launches_per_step=steps_k, host_syncs=syncs,
+               step_flops=step_flops, bound_ms=bound_ms,
+               mfu=bound_ms / step_ms[0], device_busy_ms=busy_ms,
+               profiled_window_ms=window_s * 1e3, device_ms_by_kind=kinds)
+    record.setdefault("train", {})[arch] = out
+    return out
+
+
+def phase_families(torch, dev, record) -> dict:
+    """Phase 10: K6 at cross-attention lengths (10a), both families served
+    (10b), their card-against-CPU parity (10c), the attention Function at
+    InternVL2's shapes at S = 4096 and at SeamlessM4T's cross-attention
+    over CROSS_TRAIN_SKV keys (10d), and a few training steps of each
+    at its full config (10e; ``phase_train_family``).  Returns {"serve":
+    {arch: launches}, "train": {arch: K6 a step}, "cross": 10a's
+    timings}."""
+    from repro_torch.configs import get_config
+    cross = phase_cross_attention(torch, dev, record)
+    served = phase_family_serve(torch, dev, record)
+    torch.cuda.empty_cache()
+    phase_parity(torch, dev, record, ENCDEC_ARCH, {
+        "flash_attention": 3 * PARITY_LAYERS,
+        "decode_attention": 2 * PARITY_LAYERS * (PARITY_GEN - 1)},
+        n_enc_layers=PARITY_LAYERS)
+    phase_parity(torch, dev, record, VLM_ARCH, {
+        "flash_attention": PARITY_LAYERS,
+        "decode_attention": PARITY_LAYERS * (PARITY_GEN - 1)})
+    torch.cuda.empty_cache()
+    vcfg, ecfg = get_config(VLM_ARCH), get_config(ENCDEC_ARCH)
+    phase_train_attention(
+        torch, dev, record, key="attention_4k",
+        cases=((f"{VLM_ARCH} layer at S {LONG_ATTN[3]}", LONG_ATTN, True),))
+    torch.cuda.empty_cache()
+    phase_train_attention(
+        torch, dev, record, key="attention_cross", cases=tuple(
+            (f"{ENCDEC_ARCH} cross-attention, S {s} over {CROSS_TRAIN_SKV}",
+             (b, ecfg.n_heads, ecfg.n_kv_heads, s, ecfg.hd, CROSS_TRAIN_SKV),
+             False) for b, s in ((LM_BATCH, LM_PROMPT), (2, 2048))))
+    torch.cuda.empty_cache()
+    s_vlm = TRAIN_SEQ + vcfg.n_frontend_tokens
+    trained = {}
+    for arch, cfg, per_step, flops, note in (
+            (VLM_ARCH, vcfg, 2 * vcfg.n_layers,
+             lambda n: (6 * n + 12 * vcfg.n_layers * vcfg.q_dim * s_vlm)
+             * TRAIN_BATCH * s_vlm,
+             "(6·N + 12·L·d·S) a position, S = 1,280 with the patches"),
+            (ENCDEC_ARCH, ecfg, 2 * (ecfg.n_enc_layers + 2 * ecfg.n_layers),
+             lambda n: (6 * n + 12 * (ecfg.n_enc_layers + 2 * ecfg.n_layers)
+                        * ecfg.q_dim * TRAIN_SEQ) * TRAIN_BATCH * TRAIN_SEQ,
+             "(6·N + 12·(L_enc + 2·L_dec)·d·S) a token, S_enc = S_dec")):
+        trained[arch] = phase_train_family(torch, dev, record, arch,
+                                           per_step, flops, note)[
+            "launches_per_step"][0]
+    return dict(serve=served, train=trained, cross=cross)
 
 
 # ---------------------------------------------------------------------------
@@ -4518,11 +4857,27 @@ def main() -> int:
          f"{wkv_bwd['backward_ms']:.3f} ms) {share:.4f} of the median step; "
          f"Jamba's superblock: launches a step {jamba_train}")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    families = phase_families(torch, dev, record)
+    record["families_phase_s"] = time.perf_counter() - t0
+    _log(f"phase 10 (SeamlessM4T, InternVL2): "
+         f"{record['families_phase_s']:.1f} s; served launches "
+         f"{families['serve']}; K6 a train step {families['train']}")
+
     rows.append(ghs_row)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] == "flash_attention":
-            row["train_launches_per_step"] = train_k6
+            row["train_launches_per_step"] = dict(
+                train_k6, **{a: n for a, n in families["train"].items()})
+            row["prefill_launches"] = {
+                a: c["flash_attention"] for a, c in families["serve"].items()}
+            row["cross_lengths"] = families["cross"]
+        elif row["name"] == "decode_attention":
+            row["decode_launches_per_step"] = {
+                a: c["decode_attention"] // (FAMILY_GEN - 1)
+                for a, c in families["serve"].items()}
         elif row["name"] == "wkv6":
             row["train_launches_per_step"] = \
                 rwkv_train["launches_per_step"][0]

@@ -2,12 +2,14 @@
 //
 // Replaces the Pallas TPU kernel
 // kernels/flash_attention/flash_attention.py::flash_attention (_fa_kernel):
-// q (B, Hq, S, D), k and v (B, Hkv, S, D), kv head = q head / (Hq / Hkv);
-// o = softmax(q k^T * scale, causal mask) v, in q's type.
+// q (B, Hq, S, D), k and v (B, Hkv, S_kv, D), kv head = q head / (Hq / Hkv);
+// o = softmax(q k^T * scale, causal mask) v, in q's type.  S_kv = S under
+// the causal mask; without it the keys have a length of their own, as the
+// decoder's queries over the encoder's frames in cross-attention.
 //
 // Bound: the larger of the bytes (q, k, v and o, each once) over the memory
 // rate and the 2·S²·D operations per (b, q head), causal half skipped, over
-// the bf16 tensor-core rate.  In bf16 that is S/4 operations per byte per
+// the bf16 tensor-core rate (2·S·S_kv·D without the mask).  In bf16 that is S/4 operations per byte per
 // head: at S = 1024 the two times are within 15 % of each other, so the
 // products have to run on the tensor cores to come near either.
 //
@@ -91,8 +93,8 @@ constexpr int MAX_D = 128;      // head dims 8, 16, ..., MAX_D are built
 // reduced over the 16 tx threads of its half-warp with shuffles.  Q and K
 // tiles sit in shared memory transposed, so a thread's 4 rows and 4 keys at
 // one depth are one 16-byte load each; the probabilities go through shared
-// memory, transposed, to the P·V product.  Any S is taken: keys past S in
-// the last tile get probability 0.  Loads and stores are one element each.
+// memory, transposed, to the P·V product.  Any S and S_kv are taken: keys
+// past S_kv in the last tile get probability 0.  Loads and stores are one element each.
 
 constexpr int BQ = 64;          // query rows per block (both instances)
 constexpr int BK = 64;          // keys per tile (both instances)
@@ -109,7 +111,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int hq,
-                 int hkv, int s, float scale, int causal) {
+                 int hkv, int s, int s_kv, float scale, int causal) {
   constexpr int CPT = (D + 15) / 16;          // output columns per thread
   constexpr int LQ = BQ + PAD, LK = BK + PAD, LV = D + PAD;
   extern __shared__ __align__(16) float smem[];
@@ -121,10 +123,10 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
-  const long long seq = (long long)s * D;
+  const long long seq = (long long)s * D, kseq = (long long)s_kv * D;
   const float* qb = q + ((long long)b * hq + h) * seq;
-  const float* kb = k + ((long long)b * hkv + hk) * seq;
-  const float* vb = v + ((long long)b * hkv + hk) * seq;
+  const float* kb = k + ((long long)b * hkv + hk) * kseq;
+  const float* vb = v + ((long long)b * hkv + hk) * kseq;
   float* ob = o + ((long long)b * hq + h) * seq;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int c0 = tx * CPT;                    // this thread's first column
@@ -142,12 +144,12 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(s, q0 + BQ) : s;
+  const int kv_end = causal ? min(s, q0 + BQ) : s_kv;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();        // the last tile's reads of kt, vt and pt are done
     for (int i = threadIdx.x; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D;
-      const bool in = k0 + r < s;
+      const bool in = k0 + r < s_kv;
       const long long off = (long long)(k0 + r) * D + c;
       kt[c * LK + r] = in ? kb[off] : 0.f;
       vt[r * LV + c] = in ? vb[off] : 0.f;
@@ -179,7 +181,7 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx * 4 + j;
-        ok[j] = kpos < s && (!causal || kpos <= qpos);
+        ok[j] = kpos < s_kv && (!causal || kpos <= qpos);
         sc[i][j] = ok[j] ? sc[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -346,12 +348,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
 }
 
 // One key tile for one warp: scores, online softmax, P·V.  MASK applies the
-// causal mask and the mask of keys past S (a row block's last tile only).
+// causal mask and the mask of keys past S_kv (a row block's last tile only).
 template <int D, bool MASK>
 __device__ __forceinline__ void tc_tile(
     const uint32_t (&qf)[Tile<D>::KSTEPS][4], const __nv_bfloat16* ks,
     const __nv_bfloat16* vs, float (&acc)[Tile<D>::NT_O][4], float (&m)[2],
-    float (&l)[2], int k0, int row0, int s, int causal, float sl2) {
+    float (&l)[2], int k0, int row0, int s_kv, int causal, float sl2) {
   using T = Tile<D>;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -400,7 +402,7 @@ __device__ __forceinline__ void tc_tile(
       if constexpr (MASK) {
         const int key = k0 + n * 8 + 2 * t + (e % 2);
         const int row = row0 + g + (e / 2) * 8;
-        if (key >= s || (causal && key > row)) x = NEG_INF;
+        if (key >= s_kv || (causal && key > row)) x = NEG_INF;
       }
       sc[n][e] = x;
       mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -469,7 +471,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
-                float scale, int causal) {
+                int s_kv, float scale, int causal) {
   using T = Tile<D>;
   extern __shared__ __align__(16) __nv_bfloat16 tc_smem[];
   __nv_bfloat16* qs = tc_smem;                      // [BQ][LD]
@@ -479,10 +481,10 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
-  const long long seq = (long long)s * D;
+  const long long seq = (long long)s * D, kseq = (long long)s_kv * D;
   const __nv_bfloat16* qb = q + ((long long)b * hq + h) * seq;
-  const __nv_bfloat16* kb = k + ((long long)b * hkv + hk) * seq;
-  const __nv_bfloat16* vb = v + ((long long)b * hkv + hk) * seq;
+  const __nv_bfloat16* kb = k + ((long long)b * hkv + hk) * kseq;
+  const __nv_bfloat16* vb = v + ((long long)b * hkv + hk) * kseq;
   __nv_bfloat16* ob = o + ((long long)b * hq + h) * seq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = q0 + warp * 16;
@@ -495,12 +497,12 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,
       qs[(i / PADC) * T::LD + D + i % PADC] = __float2bfloat16(0.f);
   }
 
-  const int kv_end = causal ? min(s, q0 + BQ) : s;
+  const int kv_end = causal ? min(s, q0 + BQ) : s_kv;
   const int tiles = (kv_end + BK - 1) / BK;
   load_tile<D>(qs, qb, q0, BQ, s);
   cp_async_commit();
-  load_tile<D>(ks, kb, 0, BK, s);
-  load_tile<D>(vs, vb, 0, BK, s);
+  load_tile<D>(ks, kb, 0, BK, s_kv);
+  load_tile<D>(vs, vb, 0, BK, s_kv);
   cp_async_commit();
   cp_async_wait<1>();             // Q is in shared memory
   __syncthreads();
@@ -522,8 +524,8 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < tiles; ++j) {
     if (j + 1 < tiles) {
       const int nb = (j + 1) % 2, k1 = (j + 1) * BK;
-      load_tile<D>(ks + nb * BK * T::LD, kb, k1, BK, s);
-      load_tile<D>(vs + nb * BK * T::LD, vb, k1, BK, s);
+      load_tile<D>(ks + nb * BK * T::LD, kb, k1, BK, s_kv);
+      load_tile<D>(vs + nb * BK * T::LD, vb, k1, BK, s_kv);
     }
     cp_async_commit();
     cp_async_wait<1>();           // tile j is in shared memory
@@ -531,9 +533,11 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* kt = ks + (j % 2) * BK * T::LD;
     const __nv_bfloat16* vt = vs + (j % 2) * BK * T::LD;
     if (j == tiles - 1 && mask_last)
-      tc_tile<D, true>(qf, kt, vt, acc, m, l, j * BK, row0, s, causal, sl2);
+      tc_tile<D, true>(qf, kt, vt, acc, m, l, j * BK, row0, s_kv, causal,
+                       sl2);
     else
-      tc_tile<D, false>(qf, kt, vt, acc, m, l, j * BK, row0, s, causal, sl2);
+      tc_tile<D, false>(qf, kt, vt, acc, m, l, j * BK, row0, s_kv, causal,
+                        sl2);
     __syncthreads();              // buffer j % 2 is free for tile j + 2
   }
 
@@ -557,7 +561,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,
 
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int s, float scale, int causal,
+           int hq, int hkv, int s, int s_kv, float scale, int causal,
            cudaStream_t stream) {
   const dim3 grid((s + BQ - 1) / BQ, hq, b);
   if constexpr (sizeof(T) == 2) {
@@ -570,7 +574,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        hq, hkv, s, scale, causal);
+        hq, hkv, s, s_kv, scale, causal);
   } else {
     constexpr size_t smem = smem_f32<D>();
     auto kernel = flash_kernel_f32<D>;
@@ -580,7 +584,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     kernel<<<grid, THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, s,
-        scale, causal);
+        s_kv, scale, causal);
   }
   return (int)cudaGetLastError();
 }
@@ -588,13 +592,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 // Instances for D = 8, 16, ..., MAX_D: the launch for head dim d.
 template <typename T, int D = 8>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int s, int d, float scale, int causal,
+             int hq, int hkv, int s, int s_kv, int d, float scale, int causal,
              cudaStream_t stream) {
   if (d == D)
-    return launch<D, T>(q, k, v, o, b, hq, hkv, s, scale, causal, stream);
+    return launch<D, T>(q, k, v, o, b, hq, hkv, s, s_kv, scale, causal,
+                        stream);
   if constexpr (D < MAX_D)
-    return dispatch<T, D + 8>(q, k, v, o, b, hq, hkv, s, d, scale, causal,
-                              stream);
+    return dispatch<T, D + 8>(q, k, v, o, b, hq, hkv, s, s_kv, d, scale,
+                              causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -619,18 +624,20 @@ int flash_attention_supports(int d) {
 // (bf16 = 1: the tensor-core kernel; 0: the float32 one); 0 if not built.
 int flash_attention_smem_bytes(int d, int bf16) { return smem_of(d, bf16); }
 
-// q, o: (b, hq, s, d); k, v: (b, hkv, s, d); all contiguous, one type:
-// bf16 = 0 for float32, 1 for bfloat16.  hq must be a multiple of hkv.
+// q, o: (b, hq, s, d); k, v: (b, hkv, s_kv, d); all contiguous, one type:
+// bf16 = 0 for float32, 1 for bfloat16.  hq must be a multiple of hkv, and
+// s_kv equal to s under the causal mask.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int bf16, int b, int hq, int hkv, int s, int d,
-                        float scale, int causal, void* stream) {
+                        int bf16, int b, int hq, int hkv, int s, int s_kv,
+                        int d, float scale, int causal, void* stream) {
   if (b <= 0 || s <= 0 || hq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (hkv <= 0 || hq % hkv != 0 || s_kv < 0 || (causal && s_kv != s))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, d, scale,
-                                        causal, st)
-              : dispatch<float>(q, k, v, o, b, hq, hkv, s, d, scale, causal,
-                                st);
+  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, s_kv, d,
+                                        scale, causal, st)
+              : dispatch<float>(q, k, v, o, b, hq, hkv, s, s_kv, d, scale,
+                                causal, st);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """Causal or full GQA attention forward: the CUDA kernel and its plain
-version.
+version.  Without the causal mask the keys may have a length of their own
+(cross-attention: the decoder's queries over the encoder's frames).
 
 Port of the Pallas kernel ``kernels/flash_attention/flash_attention.py::
 flash_attention`` of the JAX package: an online softmax over key tiles,
@@ -48,6 +49,17 @@ def check_heads(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: q, k and v must share one device")
 
 
+def check_lengths(name: str, q: torch.Tensor, k: torch.Tensor,
+                  causal: bool) -> None:
+    """q (B, Hq, S, D) and k (B, Hkv, S_kv, D): S_kv equals S under the
+    causal mask, whose (S, S) triangle the reference broadcasts."""
+    if q.ndim != 4:
+        raise ValueError(f"{name}: q must be (B, Hq, S, D)")
+    if causal and k.shape[2] != q.shape[2]:
+        raise ValueError(f"{name}: a causal call needs k's length "
+                         f"{k.shape[2]} equal to q's {q.shape[2]}")
+
+
 def check_launch(name: str, lib_supports, *tensors) -> None:
     """What the CUDA kernels take: float32 or bfloat16, contiguous, 16-byte
     aligned, and a head dim the source is built for."""
@@ -65,14 +77,14 @@ def check_launch(name: str, lib_supports, *tensors) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
-    """Attention of q (B, Hq, S, D) over k, v (B, Hkv, S, D); Hq % Hkv == 0.
+    """Attention of q (B, Hq, S, D) over k, v (B, Hkv, S_kv, D); Hq % Hkv
+    == 0, and S_kv == S when ``causal``.
 
     Returns (B, Hq, S, D) in q's type.  CUDA tensors launch the kernel; CPU
     tensors take the plain version; any other device raises.
     """
     check_heads("flash_attention", q, k, v)
-    if q.ndim != 4 or k.shape[2] != q.shape[2]:
-        raise ValueError("flash_attention: q must be (B, Hq, S, D) with k's S")
+    check_lengths("flash_attention", q, k, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
@@ -82,7 +94,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib.flash_attention_supports.argtypes = [ctypes.c_int]
     lib.flash_attention_supports.restype = ctypes.c_int
     lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention_fwd.restype = ctypes.c_int
     check_launch("flash_attention", lib.flash_attention_supports, q, k, v)
     b, hq, s, d = q.shape
@@ -93,10 +105,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    if k.shape[2] == 0:              # no keys: the plain version's zeros
+        return out.zero_()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   out.data_ptr(), TYPES[q.dtype], b, hq,
-                                  k.shape[1], s, d, scale, int(causal), stream)
+                                  k.shape[1], s, k.shape[2], d, scale,
+                                  int(causal), stream)
     build.check(err, "flash_attention")
     kernels.LAUNCHES["flash_attention"] += 1
     return out

@@ -3,12 +3,13 @@
 The JAX package picks, by sequence length, between the naive einsum, the
 XLA memory strategies ``chunked_attention`` and ``blocked_attention``, and
 the Pallas kernel (``use_pallas``).  The port always runs its kernel on the
-card and the plain version on the CPU.  Where the inputs need a gradient,
-it runs them through :class:`Attention`, an autograd Function whose
-forward is that same call and whose backward is ``backward.py``'s: JAX
-differentiates ``ref.attention``, which it takes for S <= 1024, so a
-training forward longer than that waits for the XLA strategies (ROADMAP
-queue 1, item 14, slice 4).
+card and the plain version on the CPU, at any length.  Where the inputs
+need a gradient, it runs them through :class:`Attention`, an autograd
+Function whose forward is that same call and whose backward is
+``backward.py``'s.  JAX differentiates ``ref.attention`` up to 1,024
+positions and its chunked and blocked strategies past that, whose live
+logits are a block's; past 1,024 positions the backward likewise takes
+the query rows in blocks of ``_pick_chunk(S, 512)``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from repro_torch.kernels.flash_attention.backward import attention_backward
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 
-TRAIN_MAX_SEQ = 1024    # the JAX package differentiates ref.attention up to here
+BLOCK_ABOVE = 1024      # the JAX package differentiates ref.attention up to here
+Q_CHUNK = 512           # the query block of its blocked_attention
 
 
 class Attention(torch.autograd.Function):
@@ -26,6 +28,8 @@ class Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale):
+        """o = attention(q, k, v); q (B, Hq, S, D), k and v (B, Hkv, S_kv,
+        D)."""
         o = flash_attention(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.causal, ctx.scale = causal, scale
@@ -34,21 +38,27 @@ class Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, o, do, causal=ctx.causal,
-                                        scale=ctx.scale)
+        s = q.shape[2]
+        dq, dk, dv = attention_backward(
+            q, k, v, o, do, causal=ctx.causal, scale=ctx.scale,
+            q_chunk=_pick_chunk(s, Q_CHUNK) if s > BLOCK_ABOVE else None)
         return dq, dk, dv, None, None
 
 
+def _pick_chunk(s: int, target: int) -> int:
+    """Largest divisor of s that is <= target (handles 4352-style lengths)."""
+    c = min(target, s)
+    while s % c:
+        c -= 1
+    return c
+
+
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """q (B, Hq, S, D); k, v (B, Hkv, S, D).  The kernel on a CUDA tensor,
-    the plain version on a CPU tensor, and any other device raises; with a
-    gradient to carry, through :class:`Attention`."""
+    """q (B, Hq, S, D); k, v (B, Hkv, S_kv, D), S_kv == S when ``causal``.
+    The kernel on a CUDA tensor, the plain version on a CPU tensor, and any
+    other device raises; with a gradient to carry, through
+    :class:`Attention`."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.shape[2] > TRAIN_MAX_SEQ:
-            raise NotImplementedError(
-                f"attention: a training forward of {q.shape[2]} > "
-                f"{TRAIN_MAX_SEQ} positions needs chunked_attention / "
-                f"blocked_attention (ROADMAP queue 1, item 14, slice 4)")
         return Attention.apply(q, k, v, causal, scale)
     return flash_attention(q, k, v, causal=causal, scale=scale)

@@ -1,5 +1,5 @@
 """Plain version of flash attention: naive causal GQA attention, the
-(S, S) logits materialized, all arithmetic in float32 (float64 for float64
+(S, S_kv) logits materialized, all arithmetic in float32 (float64 for float64
 inputs)."""
 from __future__ import annotations
 
@@ -15,8 +15,9 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0.  Returns
-    (B, Hq, S, D) in q's type."""
+    """q: (B, Hq, S, D); k, v: (B, Hkv, S_kv, D) with Hq % Hkv == 0 (and
+    S_kv == S when ``causal``: the mask is (S, S)).  Returns (B, Hq, S, D)
+    in q's type."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     if scale is None:

@@ -1,6 +1,7 @@
 """Batched LM serving driver: prefill a prompt batch, decode N tokens a
-request, for the ported families: dense transformers (Qwen, Phi-3), MoE
-transformers (Qwen2-MoE, Qwen3-MoE), RWKV6 and Jamba.
+request, for every family: dense transformers (Qwen, Phi-3), MoE
+transformers (Qwen2-MoE, Qwen3-MoE), the VLM (InternVL2), the
+encoder–decoder (SeamlessM4T), RWKV6 and Jamba.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen1.5-0.5b \
         --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
@@ -8,6 +9,14 @@ transformers (Qwen2-MoE, Qwen3-MoE), RWKV6 and Jamba.
         --batch 8 --prompt-len 1024 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \
         --arch qwen2-moe-a2.7b --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \
+        --arch seamless-m4t-large-v2 --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \
+        --arch internvl2-2b --batch 8 --prompt-len 1024 --gen 32
+
+The stub frontends' inputs come from ``synth_batch`` with the prompts: the
+encoder–decoder encodes ``--prompt-len`` frames, and the VLM puts its
+``n_frontend_tokens`` patch embeddings before the prompt.
 
 Jamba v0.1 in full (51.4 B parameters, about 103 GB in bf16) does not fit
 one 80 GB card; :func:`serve` takes a config with its depth cut, one

@@ -9,6 +9,12 @@ Fault tolerance: periodic atomic checkpoints, a final save on SIGTERM
 optimizer and the data cursor (the step).  Only the steps that log read
 the device from the host.  ``--mesh`` other than 1x1 waits for shards on
 several cards (ROADMAP queue 1, item 13b).
+
+The data source gives token batches only, as the JAX package's launcher
+does: the vlm family trains here without its patch prefix, and the encdec
+family, whose loss reads ``frame_embeds``, trains through
+``train_step.make_train_step`` on ``models.api.synth_batch`` batches,
+which carry the stub frontends' embeddings.
 """
 from __future__ import annotations
 

@@ -3,9 +3,9 @@ make_decode_state), ``train_input_specs`` (a training batch's shapes and
 types as ``meta`` tensors) and ``synth_batch`` (random batches for smoke
 runs).
 
-The dense, moe (on the transformer, as in the JAX package), ssm (RWKV6)
-and hybrid (Jamba) families are ported, and all four train.  The other
-families wait for their slice of item 14, named in the error each raises.
+Every family of the JAX package is ported, and all six train: dense, moe
+and vlm (all three on the transformer, as in the JAX package), encdec
+(``encdec.py``), ssm (RWKV6) and hybrid (Jamba).
 """
 from __future__ import annotations
 
@@ -16,14 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import runtime
-from repro_torch.models import jamba, layers, rwkv6, transformer
+from repro_torch.models import encdec, jamba, layers, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 
-# family -> the slice of ROADMAP queue 1, item 14 that brings it
-WAITING = {
-    "encdec": "item 14, slice 4 (the remaining families)",
-    "vlm": "item 14, slice 4 (the remaining families)",
-}
+# family -> the slice of ROADMAP queue 1, item 14 that brings it (none
+# waits since slice 4a)
+WAITING: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +45,13 @@ def _jamba_state(cfg, batch, max_len, device=None):
     return jamba.init_state(cfg, batch, max_len, device=device)
 
 
+def _encdec_state(cfg, batch, max_len, device=None):
+    """(the stacked self cache, the cross K/V): zeros, the cross length
+    equal to ``max_len`` as in the JAX package."""
+    cache = layers.make_cache(cfg, batch, max_len, device=device)
+    return cache, (torch.zeros_like(cache.k), torch.zeros_like(cache.v))
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     fam = cfg.family
     if fam in transformer.FAMILIES:
@@ -59,6 +64,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     if fam == "hybrid":
         return ModelApi(jamba.init, jamba.loss_fn, jamba.prefill,
                         jamba.decode_step, _jamba_state)
+    if fam == "encdec":
+        return ModelApi(encdec.init, encdec.loss_fn, encdec.prefill,
+                        encdec.decode_step, _encdec_state)
     if fam in WAITING:
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family is not ported yet (ROADMAP queue "
@@ -87,15 +95,27 @@ def train_input_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
 
 def synth_batch(rng_seed: int, cfg: ModelConfig, batch: int, seq: int, *,
                 device=None) -> dict:
-    """Random ``tokens`` (B, S) int32 and their next-token ``labels``, drawn
-    with numpy exactly as the JAX package draws them, so both packages see
-    the same tokens for one seed.  On the card unless ``device`` names
-    another.  The frontend embeddings of the VLM and encoder–decoder
-    families come with those families."""
+    """Random ``tokens`` (B, S) int32 and their next-token ``labels``, and
+    the stub frontends' embeddings in the compute type: ``frame_embeds``
+    (B, S, d_frontend) for encdec, ``patch_embeds`` (B, n_frontend_tokens,
+    d_frontend) for vlm, N(0, 0.1²).  Drawn with numpy in the JAX package's
+    order and rounded to float32 before the compute type, as its
+    ``jnp.asarray`` does without x64, so both packages see the same arrays
+    for one seed.  On the card unless ``device`` names another."""
     dev = runtime.resolve_device(device)
     rng = np.random.default_rng(rng_seed)
     tokens = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
     out: dict[str, Any] = dict(
         tokens=torch.from_numpy(tokens).to(dev),
         labels=torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
+
+    def embeds(shape):
+        x = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+        return torch.from_numpy(x).to(dev, layers.cdtype(cfg))
+
+    if cfg.family == "encdec":
+        out["frame_embeds"] = embeds((batch, seq, cfg.d_frontend))
+    if cfg.family == "vlm":
+        out["patch_embeds"] = embeds((batch, cfg.n_frontend_tokens,
+                                      cfg.d_frontend))
     return out

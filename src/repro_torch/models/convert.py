@@ -3,7 +3,8 @@
 The JAX package keeps a model's parameters as a dict pytree: float32
 masters, matrices in ``x @ W`` layout (in, out), and every per-layer leaf
 stacked on a leading layer axis (Jamba: a superblock axis, and a second
-axis over the Mamba mixers, MoE layers and dense MLPs of a superblock).
+axis over the Mamba mixers, MoE layers and dense MLPs of a superblock; the
+encoder–decoder: two stacks, ``enc_layers`` and ``dec_layers``).
 The port's modules hold ``F.linear`` matrices (out, in), in the compute
 type or float32 as each module says, one module per layer.  The expert
 stacks of an MoE layer keep the JAX package's (E, in, out) layout, which
@@ -18,25 +19,27 @@ import numpy as np
 import torch
 
 from repro_torch.core import runtime
-from repro_torch.models import jamba, rwkv6, transformer
+from repro_torch.models import encdec, jamba, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 
 # Leaves kept as (in, out) matrices by the JAX package and as (out, in)
 # here, by leaf name.
 TRANSPOSED = frozenset({
-    "lm_head",
+    "lm_head", "frame_proj", "patch_proj",               # heads, frontends
     "wq", "wk", "wv", "wo", "wi", "wg", "wd",            # attention, SwiGLU
     "router", "shared_gate",                             # MoE
     "in_proj", "x_proj", "dt_proj", "out_proj",          # Mamba (and RWKV6)
     "r_proj", "k_proj", "v_proj", "g_proj", "ck_proj", "cv_proj", "cr_proj",
     "w_lora_a", "w_lora_b",                              # RWKV6
 })
-# family -> (model class, the name of the stacked per-layer subtree)
+# family -> (model class, the names of the stacked per-layer subtrees)
 MODELS = {
-    "dense": (transformer.Transformer, "layers"),
-    "moe": (transformer.Transformer, "layers"),
-    "ssm": (rwkv6.RWKV6, "layers"),
-    "hybrid": (jamba.Jamba, "blocks"),
+    "dense": (transformer.Transformer, ("layers",)),
+    "moe": (transformer.Transformer, ("layers",)),
+    "vlm": (transformer.Transformer, ("layers",)),
+    "ssm": (rwkv6.RWKV6, ("layers",)),
+    "hybrid": (jamba.Jamba, ("blocks",)),
+    "encdec": (encdec.EncDec, ("enc_layers", "dec_layers")),
 }
 # Subtrees of a Jamba superblock stacked on a second axis: one slice per
 # module of the superblock's ModuleList of that name.
@@ -59,9 +62,10 @@ def _port(key: str, leaf: np.ndarray) -> np.ndarray:
 def from_reference(params, cfg: ModelConfig, *, device=None,
                    train: bool = False):
     """The port's model of ``cfg`` (a :class:`~repro_torch.models.
-    transformer.Transformer` for the dense and moe families, an
+    transformer.Transformer` for the dense, moe and vlm families, an
     :class:`~repro_torch.models.rwkv6.RWKV6` for ssm, a
-    :class:`~repro_torch.models.jamba.Jamba` for hybrid) holding ``params``
+    :class:`~repro_torch.models.jamba.Jamba` for hybrid, an
+    :class:`~repro_torch.models.encdec.EncDec` for encdec) holding ``params``
     (the JAX pytree, leaves as numpy arrays or anything ``np.asarray``
     takes), on the card unless ``device`` names another.  ``train`` loads
     them as float32 masters that require grad.  Raises if a parameter is
@@ -69,15 +73,16 @@ def from_reference(params, cfg: ModelConfig, *, device=None,
     if cfg.family not in MODELS:
         raise NotImplementedError(f"{cfg.name}: no port of the {cfg.family} "
                                   f"family to load into")
-    cls, stack = MODELS[cfg.family]
+    cls, stacks = MODELS[cfg.family]
     kw = dict(master=torch.float32) if train else {}
     model = cls(cfg, device=runtime.resolve_device(device), **kw)
     state = {}
     for key, leaf in _leaves(params):
         top, _, rest = key.partition(".")
-        if top != stack:
+        if top not in stacks:
             state[key] = _port(key, leaf)
             continue
+        stack = top
         sub, _, name = rest.partition(".")
         for i in range(leaf.shape[0]):
             if cfg.family == "hybrid" and sub in SUBSTACKED:
@@ -102,15 +107,16 @@ def to_reference(tensors, cfg: ModelConfig) -> dict:
     (in, out), per-layer leaves stacked on the layer axis (and Jamba's
     substacks on their second axis).  The inverse of
     :func:`from_reference`'s mapping."""
-    _, stack = MODELS[cfg.family]
+    _, stacks = MODELS[cfg.family]
     stacked: dict = {}                   # reference key -> {index: leaf}
     out: dict = {}
     for name, t in tensors.items():
         leaf = _port(name, t.detach().float().cpu().numpy())
         top, _, rest = name.partition(".")
-        if top != stack:
+        if top not in stacks:
             out[name] = leaf
             continue
+        stack = top
         i, _, rest = rest.partition(".")
         sub, _, tail = rest.partition(".")
         if cfg.family == "hybrid" and sub in SUBSTACKED:

@@ -14,9 +14,10 @@ module is the tensor itself.  Norm gains stay float32, as ``rmsnorm``
 reads them.  ``sharding.specs.shard`` is a no-op on one device, so its
 calls are dropped.
 
-Not ported yet: ``attn_decode`` (the per-layer cache and its
-cross-attention branch, with encoder–decoder models) and the ``x_kv``
-argument of ``_project_qkv`` and ``attn_apply`` (cross-attention).
+Cross-attention (the encoder–decoder family) is the ``x_kv`` argument of
+``_project_qkv`` and ``attn_apply``, whose keys and values then come from
+``x_kv`` with a length of their own, and the ``cross_kv`` branch of
+``attn_decode``, which attends over the encoder's cached K/V.
 """
 from __future__ import annotations
 
@@ -186,16 +187,19 @@ def _cast(w, x):
     return None if w is None else w.to(x.dtype)
 
 
-def _project_qkv(p: Attention, x, cfg: ModelConfig):
-    """q (B, Hq, S, hd), k and v (B, Hkv, S, hd), as views of the
-    projections."""
+def _project_qkv(p: Attention, x, cfg: ModelConfig, x_kv=None):
+    """q (B, Hq, S, hd), k and v (B, Hkv, S_kv, hd), as views of the
+    projections; k and v project ``x_kv`` (B, S_kv, d_model) where given,
+    else ``x``."""
+    x_kv = x if x_kv is None else x_kv
     b, s, _ = x.shape
+    skv = x_kv.shape[1]
     q = F.linear(x, _cast(p.wq, x), _cast(p.bq, x))
-    k = F.linear(x, _cast(p.wk, x), _cast(p.bk, x))
-    v = F.linear(x, _cast(p.wv, x), _cast(p.bv, x))
+    k = F.linear(x_kv, _cast(p.wk, x), _cast(p.bk, x))
+    v = F.linear(x_kv, _cast(p.wv, x), _cast(p.bv, x))
     q = q.view(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
-    k = k.view(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-    v = v.view(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    k = k.view(b, skv, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    v = v.view(b, skv, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
     if cfg.qk_norm:
         q = rmsnorm(q, p.qn, cfg.norm_eps)
         k = rmsnorm(k, p.kn, cfg.norm_eps)
@@ -203,15 +207,18 @@ def _project_qkv(p: Attention, x, cfg: ModelConfig):
 
 
 def attn_apply(p: Attention, x, cfg: ModelConfig, *, positions,
-               causal: bool = True, use_rope: bool = True,
+               causal: bool = True, use_rope: bool = True, x_kv=None,
                return_kv: bool = False):
-    """Full-sequence self-attention (prefill).  ``return_kv`` also returns
-    k and v (B, Hkv, S, hd), after RoPE, for the cache."""
+    """Full-sequence attention (training, prefill, the encoder, and
+    cross-attention over ``x_kv`` (B, S_kv, d_model), whose keys take the
+    positions 0..S_kv-1 under RoPE).  ``return_kv`` also returns k and v
+    (B, Hkv, S_kv, hd), after RoPE, for the cache."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
+    q, k, v = _project_qkv(p, x, cfg, x_kv=x_kv)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        k = rope(k, positions if x_kv is None else
+                 torch.arange(k.shape[2], device=x.device), cfg.rope_theta)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = attn_ops.attention(q, k, v, causal=causal)
     out = F.linear(o.transpose(1, 2).reshape(b, s, cfg.q_dim),
@@ -219,6 +226,46 @@ def attn_apply(p: Attention, x, cfg: ModelConfig, *, positions,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def attn_decode(p: Attention, x, cfg: ModelConfig, cache: Optional[KVCache],
+                *, use_rope: bool = True, cross_kv=None):
+    """One-token decode step, x (B, 1, d_model).  Returns (out, cache).
+
+    With ``cross_kv`` = (k, v) (B, Hkv, S_kv, hd), the encoder's cached
+    K/V, it attends over all S_kv of them (no RoPE on q, which the JAX
+    package's branch leaves out too) and returns ``cache`` as given.
+    Otherwise ``cache`` is one layer's (B, Hkv, Smax, hd) cache: this
+    token's k and v are written at ``cache.index`` in place and the step
+    attends over the first ``index + 1`` positions; the returned cache
+    shares its tensors, one index on."""
+    b = x.shape[0]
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = F.linear(x, _cast(p.wq, x), _cast(p.bq, x))
+        q = q.view(b, cfg.n_heads, cfg.hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p.qn, cfg.norm_eps)
+        length = torch.full((b,), k.shape[2], dtype=torch.int32,
+                            device=x.device)
+        o = decode_ops.decode_attention(q.contiguous(), k, v, length)
+        return F.linear(o.reshape(b, 1, cfg.q_dim), _cast(p.wo, x)), cache
+    index = cache.index
+    if not 0 <= index < cache.k.shape[2]:
+        raise IndexError(f"KV cache of {cache.k.shape[2]} positions is full "
+                         f"(index {index})")
+    q, k1, v1 = _project_qkv(p, x, cfg)
+    if use_rope:
+        pos = torch.arange(index, index + 1, device=x.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k1 = rope(k1, pos, cfg.rope_theta)
+    cache.k[:, :, index] = k1[:, :, 0]
+    cache.v[:, :, index] = v1[:, :, 0]
+    length = torch.full((b,), index + 1, dtype=torch.int32, device=x.device)
+    o = decode_ops.decode_attention(q[:, :, 0].contiguous(), cache.k,
+                                    cache.v, length)
+    out = F.linear(o.reshape(b, 1, cfg.q_dim), _cast(p.wo, x))
+    return out, KVCache(k=cache.k, v=cache.v, index=index + 1)
 
 
 def attn_decode_stacked(p: Attention, x, cfg: ModelConfig, ks, vs,
@@ -251,8 +298,7 @@ def attn_decode_stacked(p: Attention, x, cfg: ModelConfig, ks, vs,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                n_layers: Optional[int] = None, device=None) -> KVCache:
     """Zero-filled stacked KV cache (L, B, Hkv, max_len, hd) in the compute
-    type, on the card unless ``device`` names another.  (The JAX package's
-    unstacked form serves ``attn_decode``, which waits.)"""
+    type, on the card unless ``device`` names another."""
     nl = n_layers if n_layers is not None else cfg.n_layers
     shape = (nl, batch, cfg.n_kv_heads, max_len, cfg.hd)
     dev = runtime.resolve_device(device)

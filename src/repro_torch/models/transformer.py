@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and MoE families: ``init``,
+"""Decoder-only transformer LM, dense, MoE and VLM families: ``init``,
 ``forward``, ``loss_fn``, ``prefill`` and ``decode_step``, in the names of
 the JAX package's ``models/transformer.py``.
 
@@ -10,8 +10,11 @@ layer holds a :class:`~repro_torch.models.moe.MoE` in place of its dense
 MLP when ``cfg.n_experts > 0``.  A model made with ``master=torch.float32``
 trains: float32 masters that require grad, cast to the compute type at
 each use.  ``layers.REMAT_POLICIES`` name what a layer's checkpoint keeps,
-as the JAX package's ``jax.checkpoint`` policies do.  The VLM branch waits
-for the VLM frontend (ROADMAP queue 1, item 14, slice 4).
+as the JAX package's ``jax.checkpoint`` policies do.  The vlm family
+(InternVL2) is the dense model with a stub frontend, as in the JAX
+package: precomputed patch embeddings (B, P, d_frontend), projected by
+``patch_proj`` and put before the tokens (``prefix_embeds``); the loss
+counts the token positions only.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers, moe
@@ -26,7 +30,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -92,8 +96,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The dense or MoE LM: ``embed``, ``lm_head`` (None when tied),
-    ``layers`` and ``final_norm``; parameters uninitialized until
+    """The dense, MoE or VLM LM: ``embed``, ``lm_head`` (None when tied),
+    ``layers``, ``final_norm`` and, with a frontend (``cfg.d_frontend``),
+    ``patch_proj`` (d_model, d_frontend); parameters uninitialized until
     :func:`init` or ``convert.from_reference`` fills them.  ``master``
     None serves (matrices in the compute type, no grad); a dtype
     (float32) trains (masters of that type, every parameter requiring
@@ -104,7 +109,7 @@ class Transformer(nn.Module):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the transformer serves the dense and moe "
+                f"{cfg.name}: the transformer serves the {FAMILIES} "
                 f"families, not {cfg.family} (ROADMAP queue 1, item 14)")
         self.cfg = cfg
         dt = layers.wdtype(cfg, master)
@@ -116,6 +121,8 @@ class Transformer(nn.Module):
         self.final_norm = new((cfg.d_model,), torch.float32, fill=1.0)
         self.layers = nn.ModuleList(Block(cfg, device, master)
                                     for _ in range(cfg.n_layers))
+        self.patch_proj = (new((cfg.d_model, cfg.d_frontend), dt)
+                           if cfg.d_frontend else None)
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
@@ -129,15 +136,27 @@ def init(generator: torch.Generator, cfg: ModelConfig,
             (blk.moe if _is_moe(cfg) else blk.mlp).reset_parameters(generator)
         for name, t in layers.embed_init(generator, cfg).items():
             getattr(model, name).copy_(t)
+        if model.patch_proj is not None:
+            layers.dense_init_(model.patch_proj, generator)
     return model
 
 
-def forward(params: Transformer, tokens, cfg: ModelConfig, *,
-            remat: str = "none"):
-    """The final hidden states (B, S, d_model), after the final norm, and
-    the layers' summed aux loss (float32; 0 for a dense model)."""
-    layer = layers.remat(Block.train_forward, remat)
+def _embed(params: Transformer, tokens, cfg: ModelConfig, prefix_embeds):
+    """The tokens' embeddings, after the projected ``prefix_embeds`` (B, P,
+    d_frontend) where given: (B, P + S, d_model)."""
     x = layers.embed_tokens(params, tokens, cfg)
+    if prefix_embeds is None:
+        return x
+    pe = F.linear(prefix_embeds.to(x.dtype), params.patch_proj.to(x.dtype))
+    return torch.cat([pe, x], dim=1)
+
+
+def forward(params: Transformer, tokens, cfg: ModelConfig, *,
+            prefix_embeds=None, remat: str = "none"):
+    """The final hidden states (B, P + S, d_model), after the final norm,
+    and the layers' summed aux loss (float32; 0 for a dense model)."""
+    layer = layers.remat(Block.train_forward, remat)
+    x = _embed(params, tokens, cfg, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.layers:
@@ -149,15 +168,23 @@ def forward(params: Transformer, tokens, cfg: ModelConfig, *,
 def loss_fn(params: Transformer, batch, cfg: ModelConfig, *,
             remat: str = "none"):
     """The chunked LM loss plus the aux loss, a float32 scalar.  ``batch``:
-    ``tokens`` and ``labels`` (B, S) int, labels -100 ignored."""
-    x, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    ``tokens`` and ``labels`` (B, S) int, labels -100 ignored, and for the
+    VLM ``patch_embeds`` (B, P, d_frontend), whose positions the loss
+    skips."""
+    prefix = batch.get("patch_embeds")
+    x, aux = forward(params, batch["tokens"], cfg, prefix_embeds=prefix,
+                     remat=remat)
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
     return layers.chunked_lm_loss(params, x, batch["labels"], cfg) + aux
 
 
-def prefill(params: Transformer, tokens, cfg: ModelConfig, *, max_len: int):
-    """Run the prompt (B, S); return the last token's logits (B, 1, V) and a
-    stacked cache of ``max_len`` positions filled to S."""
-    x = layers.embed_tokens(params, tokens, cfg)
+def prefill(params: Transformer, tokens, cfg: ModelConfig, *, max_len: int,
+            prefix_embeds=None):
+    """Run the prompt (B, S), after ``prefix_embeds`` (B, P, d_frontend)
+    where given; return the last token's logits (B, 1, V) and a stacked
+    cache of ``max_len`` positions filled to P + S."""
+    x = _embed(params, tokens, cfg, prefix_embeds)
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")

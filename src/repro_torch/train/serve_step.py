@@ -11,12 +11,26 @@ SAMPLERS = ("greedy", "categorical")
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int):
-    """Returns ``prefill_step(params, batch) -> (logits, state)``.  The ssm
-    family's prefill accepts ``max_len`` and ignores it: its state does not
-    grow with the sequence."""
+    """Returns ``prefill_step(params, batch) -> (logits, state)``: exactly a
+    2-tuple for every family, as the JAX package's.  encdec's prefill
+    returns ``(logits, cache, cross)``, given here as ``(logits, (cache,
+    cross))``, the state :func:`make_decode_step` unpacks; it reads
+    ``batch["frame_embeds"]``.  The vlm family's prefill puts
+    ``batch["patch_embeds"]`` before the tokens, so its cache holds
+    ``max_len + cfg.n_frontend_tokens`` positions.  The ssm family's
+    prefill accepts ``max_len`` and ignores it: its state does not grow
+    with the sequence."""
     model = get_model(cfg)
 
     def prefill_step(params, batch):
+        if cfg.family == "encdec":
+            logits, cache, cross = model.prefill(params, batch, cfg,
+                                                 max_len=max_len)
+            return logits, (cache, cross)
+        if cfg.family == "vlm":
+            return model.prefill(params, batch["tokens"], cfg,
+                                 max_len=max_len + cfg.n_frontend_tokens,
+                                 prefix_embeds=batch["patch_embeds"])
         return model.prefill(params, batch["tokens"], cfg, max_len=max_len)
 
     return prefill_step
@@ -47,7 +61,13 @@ def make_decode_step(cfg: ModelConfig, *, sample: str = "greedy",
     model = get_model(cfg)
 
     def decode_step(params, state, tokens, generator=None):
-        logits, new_state = model.decode_step(params, state, tokens, cfg)
+        if cfg.family == "encdec":
+            cache, cross = state
+            logits, cache = model.decode_step(params, cache, cross, tokens,
+                                              cfg)
+            new_state = (cache, cross)
+        else:
+            logits, new_state = model.decode_step(params, state, tokens, cfg)
         nxt = pick(logits, sample=sample, temperature=temperature,
                    generator=generator)
         return nxt[:, None], new_state, logits

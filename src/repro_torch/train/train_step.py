@@ -37,8 +37,11 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 def make_train_step(cfg: ModelConfig, hp: TrainHParams):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
-    holds ``tokens`` and ``labels`` (B, S), B a multiple of
-    ``hp.grad_accum``; ``metrics``: ``loss``, ``grad_norm``, ``lr``."""
+    holds ``tokens`` and ``labels`` (B, S), and the frontend embeddings of
+    the encdec and vlm families (``frame_embeds``, ``patch_embeds``), all
+    with the batch first, B a multiple of ``hp.grad_accum``: each
+    microbatch takes its rows of every entry.  ``metrics``: ``loss``,
+    ``grad_norm``, ``lr``."""
     model_api = get_model(cfg)
     adamw = hp.adamw
 

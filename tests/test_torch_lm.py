@@ -21,8 +21,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_config, list_archs
 from repro_torch.launch import serve_lm
-from repro_torch.models import (api, convert, jamba, layers, moe, rwkv6,
-                                 transformer)
+from repro_torch.models import (api, convert, encdec, jamba, layers, moe,
+                                 rwkv6, transformer)
 from repro_torch.train import serve_step
 
 LOGIT_TOL = 1e-4
@@ -283,11 +283,17 @@ def test_unported_families_raise():
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 transformer.Transformer(cfg, device="cpu")
             continue
-        assert cfg.family in api.WAITING
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.get_model(cfg)
+        if cfg.family == "vlm":        # InternVL2: tests/test_torch_vlm.py
+            model = api.get_model(cfg)
+            assert model.init is transformer.init
+            assert transformer.Transformer(cfg, device="cpu").patch_proj \
+                .shape == (cfg.d_model, cfg.d_frontend)
+            continue
+        assert cfg.family == "encdec"  # tests/test_torch_encdec.py
+        assert api.get_model(cfg).init is encdec.init
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.Transformer(cfg, device="cpu")
+    assert api.WAITING == {}
 
 
 def test_categorical_sampling_follows_the_softmax():
