@@ -272,7 +272,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       step, the host syncs of steps 2-3 counted, step 2 timed by events,
       step 3 profiled (device time by kind from the raw events), ``mfu``
       and peak memory;
-11. one ``{"kernels": [...]}`` line, the card line, and last the result
+11. counting (``launch/flops.py``, the kernels' charges):
+   a. each of the ten archs' smoke configs in float32, on the card and on
+      the CPU with the same weights and batch: one train step under remat
+      ``none``, a prefill and COUNT_GEN decode steps, each under a
+      ``CostCounter``; ``flops``, ``matmul_flops``, ``bytes`` and every
+      kernel's charge equal on both devices, and each kernel's calls on
+      the card equal to its launches;
+   b. rmat-COUNT_SCALE under both round bodies, the host loop, a batch of
+      two graphs and a K5 lookup, on the card and on the CPU: the charges
+      of K1-K5 equal, the aten totals of both devices logged side by side;
+   (phases 9b, 9e and 10e also run one untimed step under the counter
+   after their timed ones: ``counted_flops``, ``counted_matmul_flops``,
+   ``counted_bytes`` and ``mfu_counted`` beside the analytic ``mfu``;
+   Qwen1.5-0.5B's counted matmul FLOPs under ``none`` equal
+   ``_dense_train_matmul_flops`` to the FLOP);
+12. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
@@ -438,6 +453,10 @@ CROSS_SKV = (1024, 1536, 777)
 LONG_ATTN = (2, 16, 8, 4096, 128)
 CROSS_TRAIN_SKV = 777
 FAMILY_TRAIN_STEPS = 3
+
+# Phase 11, counting: the smoke configs' steps on both devices, float32
+COUNT_BATCH, COUNT_SEQ, COUNT_GEN = 2, 64, 2
+COUNT_SCALE = 12                # rmat of phase 11b
 
 
 _T0 = time.perf_counter()
@@ -2185,9 +2204,20 @@ def phase_attention(torch, dev, record, ptxas: str,
             t["split"] = _decode_split(torch, "served", calls, t)
             tg["split"] = _decode_split(torch, "qwen2.5-14b shapes", gqa, tg)
             it = itertools.cycle(calls)
-            t["host_us"] = _host_us(torch, lambda: kernel(*next(it)))
+            hooked, bare = [], []
+            for f in (kernel, kernel.__wrapped__) * 2 + (
+                    kernel.__wrapped__, kernel) * 2:       # ABAB BABA
+                (hooked if f is kernel else bare).append(
+                    _host_us(torch, lambda f=f: f(*next(it))))
+            t["host_us"] = hooked[0]
+            t["host_us_charge_hook"] = dict(with_hook=hooked, without=bare)
             _log(f"decode_attention wrapper: {t['host_us']:.1f} us of host "
-                 f"time a call (served shapes, the device kept busy)")
+                 f"time a call (served shapes, the device kept busy); in "
+                 f"turns, with the counter's entry hook (no counter "
+                 f"active) {[round(x, 2) for x in hooked]} us, median "
+                 f"{statistics.median(hooked):.2f}; without "
+                 f"{[round(x, 2) for x in bare]}, median "
+                 f"{statistics.median(bare):.2f}")
         source, replaces = KERNELS[name]
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -3032,7 +3062,8 @@ def _token_window(np, path: Path, n: int, vocab: int) -> None:
 
 
 def _train_main_run(torch, arch, remat, batch, kernel, per_step, flops,
-                    flops_note, kernel_names, table) -> dict:
+                    flops_note, kernel_names, table,
+                    counted_want=None) -> dict:
     """One ``launch.train.main`` run of ``arch`` at its full config, batch
     ``batch``, seq TRAIN_SEQ, TRAIN_STEPS steps on a repeated batch (a
     warm-up of one step) under ``remat``: steps 2-5 under sync debug mode
@@ -3042,12 +3073,18 @@ def _train_main_run(torch, arch, remat, batch, kernel, per_step, flops,
     over step 6 broken down by ``TRAIN_OP_KINDS`` (and the profiler's
     table written to ``table``, if named),
     and ``mfu``: ``flops(n_params)`` a step at 989 TFLOP/s over the
-    median step (``flops_note`` states the formula)."""
+    median step (``flops_note`` states the formula).  Then one untimed
+    step more under a ``CostCounter`` (``_counted_step``) on the same
+    batch: ``mfu_counted`` against its matmul FLOPs, which must equal
+    ``counted_want`` where that is given."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, make_dataset
     from repro_torch.launch import train as train_launch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainHParams, make_train_step
     cfg = get_config(arch)
     OUT_DIR.mkdir(exist_ok=True)
     path = OUT_DIR / f"train_tokens_{batch}.bin"
@@ -3091,7 +3128,15 @@ def _train_main_run(torch, arch, remat, batch, kernel, per_step, flops,
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = sum(p.numel() for p in state["params"].parameters())
-    del state
+    data = make_dataset(DataConfig(kind="file", path=str(path),
+                                   vocab=cfg.vocab, seed=LM_SEED),
+                        batch, TRAIN_SEQ,
+                        device=next(state["params"].parameters()).device)
+    state, cost, counted_s = _counted_step(
+        torch, make_train_step(cfg, TrainHParams(
+            remat=remat, adamw=opt.AdamWConfig(warmup_steps=1))),
+        state, data.batch_at(0))
+    del state, data
     vals = [float(x) for x in losses]
     steps_k = [b - a for a, b in zip([0] + counts[:-1], counts)]
     if not all(math.isfinite(x) for x in vals) or vals[-1] >= vals[0]:
@@ -3106,6 +3151,16 @@ def _train_main_run(torch, arch, remat, batch, kernel, per_step, flops,
     tokens = batch * TRAIN_SEQ
     step_flops = flops(n_params) * tokens
     bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+    counted = _counted_fields(cost, counted_s, median_ms)
+    _log(f"train {arch} remat={remat}: counted step ({counted_s:.2f} s "
+         f"with the counter): flops {cost['flops']}, matmul "
+         f"{cost['matmul_flops']} (analytic {step_flops}), bytes "
+         f"{cost['bytes']}, kernels {cost['kernels']}; mfu_counted "
+         f"{counted['mfu_counted']:.4f}")
+    if counted_want is not None and cost["matmul_flops"] != counted_want:
+        raise AssertionError(f"train {arch} remat={remat}: counted matmul "
+                             f"FLOPs {cost['matmul_flops']}, the formula "
+                             f"gives {counted_want}")
     kinds, names = _device_breakdown(prof["p"])
     busy_ms = sum(ms for ms, _ in kinds.values())
     window = dict(device_busy_ms=busy_ms,
@@ -3130,7 +3185,8 @@ def _train_main_run(torch, arch, remat, batch, kernel, per_step, flops,
         idle_share=window["idle_share"],
         device_busy_ms=window["device_busy_ms"],
         busy_over_median_step=window["device_busy_ms"] / median_ms,
-        profile_kernels=window["counts"], device_ms_by_kind=kinds)
+        profile_kernels=window["counts"], device_ms_by_kind=kinds,
+        **counted)
     _log(f"train {arch} remat={remat}: batch {batch} seq {TRAIN_SEQ}, "
          f"{n_params} parameters, losses {[round(x, 4) for x in vals]}; "
          f"steps {first}-{last} under sync debug mode 'error'; step ms "
@@ -3153,7 +3209,9 @@ def phase_train_run(torch, record) -> dict:
     under remat ``none`` and ``full``: K6 launched once a layer a step
     (twice under ``full``); ``mfu`` against 6·N (every parameter's forward
     and backward, the tied head included) plus the attention's 12·L·d·S a
-    token.  Returns K6's launches a step under each remat."""
+    token; under ``none`` the counted step's matmul FLOPs equal
+    ``_dense_train_matmul_flops``.  Returns K6's launches a step under
+    each remat."""
     from repro_torch.configs import get_config
     cfg = get_config(TRAIN_ARCH)
     out, per_step = {}, {}
@@ -3163,7 +3221,10 @@ def phase_train_run(torch, record) -> dict:
             per_layer * cfg.n_layers,
             lambda n: 6 * n + 12 * cfg.n_layers * cfg.q_dim * TRAIN_SEQ,
             "6·N + 12·L·d·S", ("flash_kernel",),
-            f"chip_smoke_profile_train_{remat}.txt")
+            f"chip_smoke_profile_train_{remat}.txt",
+            counted_want=(_dense_train_matmul_flops(cfg, TRAIN_BATCH,
+                                                    TRAIN_SEQ)
+                          if remat == "none" else None))
         per_step[remat] = out[remat]["launches_per_step"][0]
     record.setdefault("train", {})["run"] = out
     return per_step
@@ -3711,8 +3772,9 @@ def phase_train_family(torch, dev, record, arch, per_step, flops,
     steps after the first under sync debug mode "warn" (host syncs
     counted), step 2's time by CUDA events, and the last step profiled,
     its device time by kind from the raw events (``_device_breakdown``);
-    ``mfu`` against ``flops(n_params)`` a step.  Returns the run's
-    record."""
+    ``mfu`` against ``flops(n_params)`` a step; then one untimed step
+    more under a ``CostCounter`` (``_counted_step``), ``mfu_counted``
+    against its matmul FLOPs.  Returns the run's record."""
     import warnings
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
@@ -3762,6 +3824,7 @@ def phase_train_family(torch, dev, record, arch, per_step, flops,
     prof.stop()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state, cost, counted_s = _counted_step(torch, step, state, batch)
     del state, batch, m
     torch.cuda.empty_cache()
     vals = [float(x) for x in losses]
@@ -3772,6 +3835,11 @@ def phase_train_family(torch, dev, record, arch, per_step, flops,
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_flops = flops(n_params)
     bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+    counted = _counted_fields(cost, counted_s, step_ms[0])
+    _log(f"train {arch}: counted step ({counted_s:.2f} s with the "
+         f"counter): flops {cost['flops']}, matmul {cost['matmul_flops']} "
+         f"(analytic {step_flops}), bytes {cost['bytes']}, kernels "
+         f"{cost['kernels']}; mfu_counted {counted['mfu_counted']:.4f}")
     for kind, (ms, n) in kinds.items():
         _log(f"  train {arch} step {FAMILY_TRAIN_STEPS} device time: {kind} "
              f"{ms:.3f} ms over {n} ops")
@@ -3798,7 +3866,8 @@ def phase_train_family(torch, dev, record, arch, per_step, flops,
                params=n_params, launches_per_step=steps_k, host_syncs=syncs,
                step_flops=step_flops, bound_ms=bound_ms,
                mfu=bound_ms / step_ms[0], device_busy_ms=busy_ms,
-               profiled_window_ms=window_s * 1e3, device_ms_by_kind=kinds)
+               profiled_window_ms=window_s * 1e3, device_ms_by_kind=kinds,
+               **counted)
     record.setdefault("train", {})[arch] = out
     return out
 
@@ -3849,6 +3918,223 @@ def phase_families(torch, dev, record) -> dict:
                                            per_step, flops, note)[
             "launches_per_step"][0]
     return dict(serve=served, train=trained, cross=cross)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: counting
+# ---------------------------------------------------------------------------
+
+def _dense_train_matmul_flops(cfg, batch: int, seq: int) -> int:
+    """The matmul FLOPs that ``launch/flops.py`` counts in one train step
+    of a dense transformer under remat ``none``: 6 a matrix parameter a
+    token (the head once, tied or not: the embedding's lookup is no
+    product); the head again, 2·d·V·T, where the chunked loss recomputes
+    its chunks (S a multiple of 512 and longer); K6's charge, 4·B·Hq·S²·hd
+    a layer; and the backward's five products (``backward.py:64-76``: the
+    logits recomputed, dV, dP, dQ, dK), 10·B·Hq·S²·hd a layer."""
+    t = batch * seq
+    d = cfg.d_model
+    matrices = cfg.vocab * d + cfg.n_layers * (
+        2 * d * cfg.q_dim + 2 * d * cfg.kv_dim + 3 * d * cfg.d_ff)
+    head = 2 * d * cfg.vocab * t if seq > 512 and seq % 512 == 0 else 0
+    attention = 14 * cfg.n_layers * batch * cfg.n_heads * seq * seq * cfg.hd
+    return 6 * matrices * t + head + attention
+
+
+def _counted_step(torch, step, state, batch) -> tuple:
+    """One train step under a ``CostCounter``: (state, its cost, the
+    step's host seconds with the counter's own)."""
+    from repro_torch.launch import flops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with flops.CostCounter() as counter:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    return state, counter.result(), time.perf_counter() - t0
+
+
+def _counted_fields(cost: dict, seconds: float, step_ms: float) -> dict:
+    """The counted step's record: its FLOPs, matmul FLOPs and bytes, and
+    ``mfu_counted``, the counted matmul FLOPs at 989 TFLOP/s over
+    ``step_ms``."""
+    return dict(counted_flops=cost["flops"],
+                counted_matmul_flops=cost["matmul_flops"],
+                counted_bytes=cost["bytes"], counted_kernels=cost["kernels"],
+                counted_step_s=seconds,
+                mfu_counted=cost["matmul_flops"] / BF16_OPS_PER_S
+                / (step_ms / 1e3))
+
+
+def _count_arch(torch, arch, dev) -> dict:
+    """Phase 11a on one device: ``arch``'s smoke config in float32, its
+    weights drawn on the CPU from LM_SEED and moved to ``dev``, the batch
+    of ``synth_batch(LM_SEED)``: one train step under remat ``none``, a
+    prefill and COUNT_GEN decode steps of fixed tokens, each under a
+    ``CostCounter``.  Returns {step: cost}, each cost with ``launches``,
+    the kernels' launch counts over that step."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import flops
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import serve_step
+    from repro_torch.train.train_step import TrainHParams, make_train_step
+    cfg = get_config(arch, smoke=True)
+    if cfg.compute_dtype != "float32":
+        raise AssertionError(f"count {arch}: the smoke config computes in "
+                             f"{cfg.compute_dtype}")
+    model = api.get_model(cfg).init(torch.Generator().manual_seed(LM_SEED),
+                                    cfg, master=torch.float32).to(dev)
+    state = dict(params=model, opt=opt.init(dict(model.named_parameters())))
+    batch = api.synth_batch(LM_SEED, cfg, COUNT_BATCH, COUNT_SEQ, device=dev)
+    out = {}
+
+    def counted(label, fn, *args):
+        before = dict(kernels.LAUNCHES)
+        with flops.CostCounter() as counter:
+            res = fn(*args)
+        out[label] = dict(counter.result(), launches={
+            k: n - before[k] for k, n in kernels.LAUNCHES.items()
+            if n != before[k]})
+        return res
+
+    counted("train", make_train_step(cfg, TrainHParams(remat="none")),
+            state, batch)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    tokens = torch.zeros((COUNT_BATCH, 1), dtype=torch.int32, device=dev)
+    decode = serve_step.make_decode_step(cfg)
+    with torch.no_grad():
+        _, cache = counted("prefill", serve_step.make_prefill_step(
+            cfg, max_len=COUNT_SEQ + COUNT_GEN), model, prompt)
+        for i in range(COUNT_GEN):
+            _, cache, _ = counted(f"decode {i + 1}", decode, model, cache,
+                                  tokens)
+    return out
+
+
+def _same_counts(label, card: dict, cpu: dict) -> None:
+    """Raise unless two devices' costs agree in every total and every
+    kernel's charge, and each kernel's calls on the card equal its
+    launches there."""
+    for step, c in card.items():
+        h = cpu[step]
+        diff = {k: (c[k], h[k]) for k in ("flops", "matmul_flops", "bytes",
+                                          "kernels") if c[k] != h[k]}
+        if diff:
+            raise AssertionError(f"count {label} {step}: the card and the "
+                                 f"CPU differ: {diff}")
+        calls = {k: v["calls"] for k, v in c["kernels"].items()}
+        if calls != c["launches"]:
+            raise AssertionError(f"count {label} {step}: kernel charges "
+                                 f"{calls} but launches {c['launches']}")
+
+
+def _count_mst(torch, dev, graphs) -> dict:
+    """Phase 11b on one device: the costs of ``minimum_spanning_forest``
+    on ``graphs[0]`` with ``use_pallas=True`` under both round bodies and
+    the host loop, of ``minimum_spanning_forests`` on both graphs, and of
+    ``edge_hash.ops.lookup`` of every edge of ``graphs[0]`` in its table
+    (built and packed on ``dev`` before the count); each cost with
+    ``bytes_by_op``, its aten bytes by op name."""
+    import collections
+    import numpy as np
+    from repro_torch.core import mst_api
+    from repro_torch.core.params import GHSParams
+    from repro_torch.kernels.edge_hash import ops as hash_ops
+    from repro_torch.launch import flops
+
+    class ByOp(flops.CostCounter):
+        def __init__(self):
+            super().__init__()
+            self.by_op = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = self.bytes
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            self.by_op[func.overloadpacket.__name__] += self.bytes - before
+            return out
+
+    def cost(run):
+        with ByOp() as counter:
+            run()
+        return dict(counter.result(), bytes_by_op=dict(counter.by_op))
+
+    g = graphs[0]
+    pos = np.arange(g.num_edges, dtype=np.int32)
+    records = hash_ops.pack_table(hash_ops.build_table(
+        g.src, g.dst, pos, 4 * g.num_edges + 1), dev)
+    q_lv = torch.as_tensor(g.src, dtype=torch.int32, device=dev)
+    q_u = torch.as_tensor(g.dst, dtype=torch.int32, device=dev)
+    runs = dict(
+        xla=lambda: mst_api.minimum_spanning_forest(
+            g, params=GHSParams(use_pallas=True, round_kernel="xla"),
+            device=dev),
+        pallas=lambda: mst_api.minimum_spanning_forest(
+            g, params=GHSParams(use_pallas=True, round_kernel="pallas"),
+            device=dev),
+        host=lambda: mst_api.minimum_spanning_forest(
+            g, params=GHSParams(use_pallas=True, round_loop="host"),
+            device=dev),
+        batch=lambda: mst_api.minimum_spanning_forests(
+            list(graphs), params=GHSParams(use_pallas=True), device=dev),
+        lookup=lambda: hash_ops.lookup(records, q_lv, q_u, device=dev))
+    return {name: cost(run) for name, run in runs.items()}
+
+
+def phase_counting(torch, dev, record) -> None:
+    """Phase 11: (a) ``_count_arch`` of each of the ten archs on the card
+    and on the CPU, held equal by ``_same_counts``; (b) ``_count_mst`` of
+    rmat-COUNT_SCALE (and a second graph for the batch) on both devices:
+    the charges of K1-K5 equal, the aten totals logged side by side."""
+    from repro_torch.configs import list_archs
+    from repro_torch.core import generators
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    archs = {}
+    for arch in list_archs():
+        card, host = _count_arch(torch, arch, dev), _count_arch(torch, arch,
+                                                                cpu)
+        _same_counts(arch, card, host)
+        archs[arch] = card
+        for step, c in card.items():
+            _log(f"count {arch} {step}: flops {c['flops']}, matmul "
+                 f"{c['matmul_flops']}, bytes {c['bytes']}, kernels "
+                 f"{ {k: v['calls'] for k, v in c['kernels'].items()} } "
+                 f"(card = CPU)")
+    t_archs = time.perf_counter() - t0
+    graphs = (generators.rmat(COUNT_SCALE, seed=SEED),
+              generators.rmat(COUNT_SCALE - 2, seed=SEED + 1))
+    card, host = _count_mst(torch, dev, graphs), _count_mst(torch, cpu,
+                                                            graphs)
+    charged = ("segmented_min2_scan", "masked_minplus_scan", "pointer_jump",
+               "segmented_min_scan", "hash_lookup")
+    mst = {}
+    for run, c in card.items():
+        h = host[run]
+        kc = {k: v for k, v in c["kernels"].items() if k in charged}
+        kh = {k: v for k, v in h["kernels"].items() if k in charged}
+        if kc != kh or not kc:
+            raise AssertionError(f"count rmat-{COUNT_SCALE} {run}: kernel "
+                                 f"charges card {kc}, CPU {kh}")
+        mst[run] = dict(card={k: c[k] for k in ("flops", "matmul_flops",
+                                                "bytes")},
+                        cpu={k: h[k] for k in ("flops", "matmul_flops",
+                                               "bytes")}, kernels=kc)
+        ops = set(c["bytes_by_op"]) | set(h["bytes_by_op"])
+        mst[run]["bytes_by_op_card_less_cpu"] = {
+            op: c["bytes_by_op"].get(op, 0) - h["bytes_by_op"].get(op, 0)
+            for op in sorted(ops)
+            if c["bytes_by_op"].get(op, 0) != h["bytes_by_op"].get(op, 0)}
+        _log(f"count rmat-{COUNT_SCALE} {run}: kernels "
+             f"{ {k: v['calls'] for k, v in kc.items()} } charged equal; "
+             f"aten + charges, card / CPU: flops {c['flops']} / "
+             f"{h['flops']}, bytes {c['bytes']} / {h['bytes']}; bytes by "
+             f"op, card less CPU: {mst[run]['bytes_by_op_card_less_cpu']}")
+    seconds = time.perf_counter() - t0
+    record["counting"] = dict(archs=archs, mst=mst, archs_s=t_archs,
+                              seconds=seconds)
+    _log(f"phase 11 (counting): {seconds:.1f} s ({t_archs:.1f} s the ten "
+         f"archs on both devices)")
 
 
 # ---------------------------------------------------------------------------
@@ -4707,10 +4993,9 @@ def compare_ghs(other: str) -> int:
 
 def main() -> int:
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import platform
+    pinned = platform.pin(platform="gpu")     # raises with no card
     from repro_torch.configs import get_config
     from repro_torch.core import generators, kruskal_ref, runtime
     from repro_torch.kernels import build
@@ -4721,7 +5006,9 @@ def main() -> int:
     _log(card)
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
-    record = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    _log(f"pinned: {pinned}")
+    record = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                  pinned=pinned)
 
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -4804,8 +5091,6 @@ def main() -> int:
          f"launches {record['mesh_launches']}")
     torch.cuda.empty_cache()
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     rows += phase_attention(torch, dev, record, logs["flash_attention"],
                             logs["decode_attention"])
@@ -4864,6 +5149,9 @@ def main() -> int:
     _log(f"phase 10 (SeamlessM4T, InternVL2): "
          f"{record['families_phase_s']:.1f} s; served launches "
          f"{families['serve']}; K6 a train step {families['train']}")
+
+    torch.cuda.empty_cache()
+    phase_counting(torch, dev, record)
 
     rows.append(ghs_row)
     for row in rows:

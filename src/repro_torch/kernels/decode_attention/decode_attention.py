@@ -30,6 +30,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import (
     MAX_GRID, TYPES, check_heads, check_launch)
+from repro_torch.launch import flops
 
 TILE = 32                 # cache rows of a tile (one a lane)
 HEADS_PER_BLOCK = 8       # query heads a block at most, a warp each
@@ -116,6 +117,7 @@ def _counts(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return counts
 
 
+@flops.kernel("decode_attention", flops.attention_matmul_flops)
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: torch.Tensor, *,
                      scale: float | None = None) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.edge_hash import ref
+from repro_torch.launch import flops
 
 MAX_PROBES = 64
 
@@ -115,6 +116,7 @@ def pack_records(h_lv: torch.Tensor, h_u: torch.Tensor,
     return records
 
 
+@flops.kernel("hash_lookup")
 def hash_lookup_records(records: torch.Tensor, q_lv: torch.Tensor,
                         q_u: torch.Tensor, *,
                         max_probes: int = MAX_PROBES) -> torch.Tensor:
@@ -150,6 +152,7 @@ def hash_lookup_records(records: torch.Tensor, q_lv: torch.Tensor,
     return out
 
 
+@flops.kernel("hash_lookup")
 def hash_lookup(h_lv: torch.Tensor, h_u: torch.Tensor, h_pos: torch.Tensor,
                 q_lv: torch.Tensor, q_u: torch.Tensor, *,
                 max_probes: int = MAX_PROBES) -> torch.Tensor:

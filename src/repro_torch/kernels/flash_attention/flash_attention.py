@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.launch import flops
 
 TYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID = 65535                 # CUDA's limit on gridDim.y and gridDim.z
@@ -74,6 +75,7 @@ def check_launch(name: str, lib_supports, *tensors) -> None:
         raise ValueError(f"{name}: no kernel for head dim {d}")
 
 
+@flops.kernel("flash_attention", flops.attention_matmul_flops)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:

@@ -40,6 +40,7 @@ from repro_torch import kernels
 from repro_torch.core.ghs_state import ShardState
 from repro_torch.kernels.ghs_superstep import ref
 from repro_torch.kernels.ghs_superstep.ref import Config
+from repro_torch.launch import flops
 
 THREADS = 256           # threads of a shard's block (inbox scan, exchange)
 _SIZES = ("block", "qcap", "ocap", "xcap", "tsize", "hcap", "n_steps",
@@ -110,6 +111,7 @@ def _check(state: ShardState, scal: torch.Tensor, cfg: Config) -> None:
         raise ValueError("ghs_superstep: state shapes differ from the config")
 
 
+@flops.kernel("ghs_superstep")
 def interval(state: ShardState, scal: torch.Tensor, n_steps: int,
              cfg: Config) -> torch.Tensor:
     """Run up to ``n_steps`` supersteps of ``state`` in place, from

@@ -23,6 +23,7 @@ from repro_torch import kernels
 from repro_torch.kernels.flash_attention.flash_attention import TYPES
 from repro_torch.kernels.flash_attention.ref import acc_dtype
 from repro_torch.kernels.mamba_scan import ref
+from repro_torch.launch import flops
 
 
 def selective_scan_plain(x, dt, b, c, a, d, *, return_state: bool = False):
@@ -48,6 +49,7 @@ def _check(x, dt, b, c, a, d) -> None:
         raise ValueError("selective_scan: all inputs must share one device")
 
 
+@flops.kernel("selective_scan")
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, a: torch.Tensor, d: torch.Tensor, *,
                    return_state: bool = False):

@@ -23,6 +23,7 @@ from repro_torch import kernels
 from repro_torch.kernels.flash_attention.flash_attention import (
     TYPES, check_launch)
 from repro_torch.kernels.rwkv6 import ref
+from repro_torch.launch import flops
 
 
 def wkv6_plain(r, k, v, w, u, *, return_state: bool = False):
@@ -41,6 +42,7 @@ def _check(r, k, v, w, u) -> None:
         raise ValueError("wkv6: r, k, v, w and u must share one device")
 
 
+@flops.kernel("wkv6")
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, *, return_state: bool = False):
     """r, k, v, w (BH, T, D) with w the decay in (0, 1); u (BH, D).

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch import kernels
+from repro_torch.launch import flops
 
 
 def check_lanes(name: str, seg: torch.Tensor, key: torch.Tensor,
@@ -88,6 +89,7 @@ def launch_segscan(name: str, seg: torch.Tensor, oth: Optional[torch.Tensor],
     return out
 
 
+@flops.kernel("segmented_min2_scan")
 def segmented_min2_scan(seg: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     """Inclusive segmented min-scan of ``key`` along sorted ``seg``.
 
@@ -109,6 +111,7 @@ def segmented_min_scan_plain(seg: torch.Tensor, val: torch.Tensor) -> torch.Tens
     return segmented_min2_scan_plain(seg, val)
 
 
+@flops.kernel("segmented_min_scan")
 def segmented_min_scan(seg: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Inclusive segmented min-scan of one 32-bit lane along sorted ``seg``.
 

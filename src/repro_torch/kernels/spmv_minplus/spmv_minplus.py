@@ -30,6 +30,7 @@ from repro_torch.core import keys as keys_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.segment_min.segment_min import (
     check_lanes, launch_segscan, segmented_min2_scan_plain)
+from repro_torch.launch import flops
 
 INF_KEY = keys_lib.INF_KEY
 
@@ -44,6 +45,7 @@ def masked_minplus_scan_plain(seg: torch.Tensor, oth: torch.Tensor,
     return segmented_min2_scan_plain(seg, torch.where(live, key, INF_KEY))
 
 
+@flops.kernel("masked_minplus_scan")
 def masked_minplus_scan(seg: torch.Tensor, oth: torch.Tensor,
                         key: torch.Tensor) -> torch.Tensor:
     """Masked inclusive segmented min-scan of ``key`` along sorted ``seg``.
@@ -116,6 +118,7 @@ def _jump_lib():
     return lib
 
 
+@flops.kernel("pointer_jump")
 def pointer_jump(parent: torch.Tensor, comp: torch.Tensor) -> torch.Tensor:
     """Fused full path compression + relabel: ``pointer_double(parent)[comp]``.
 

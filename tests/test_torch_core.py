@@ -296,6 +296,15 @@ def test_port_imports_neither_jax_nor_repro():
         "st = train.main(['--smoke', '--device', 'cpu', '--steps', '2',\n"
         "                 '--batch', '2', '--seq', '16', '--remat', 'full'])\n"
         "assert int(st['opt']['step']) == 2\n"
+        "from repro_torch import platform\n"
+        "from repro_torch.launch import flops\n"
+        "from repro_torch.train.train_step import TrainHParams, \\\n"
+        "    make_train_step\n"
+        "cfg = get_config('qwen1.5-0.5b', smoke=True)\n"
+        "cost = flops.cost_of(make_train_step(cfg, TrainHParams('none')),\n"
+        "                     st, api.synth_batch(0, cfg, 2, 16, device='cpu'))\n"
+        "assert cost['kernels']['flash_attention']['calls'] == 2, cost\n"
+        "assert cost['matmul_flops'] > 0 and cost['bytes'] > 0, cost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
