@@ -287,7 +287,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``counted_bytes`` and ``mfu_counted`` beside the analytic ``mfu``;
    Qwen1.5-0.5B's counted matmul FLOPs under ``none`` equal
    ``_dense_train_matmul_flops`` to the FLOP);
-12. one ``{"kernels": [...]}`` line, the card line, and last the result
+12. the dry run (``launch/dryrun.py``; ``meta`` tensors, nothing on the
+   card): the fake process groups of 256 and 512 ranks and their
+   production meshes, every parameter of the ten full configs placed on
+   both by the sharding rules (each arch's per-rank train state beside
+   its prediction), ``run_cell`` of every arch at DRYRUN_SHAPE on
+   pod16x16, and the counted steps of 9b, 9e and 10e counted again on
+   ``meta``, equal to the card's in every total and charge; within
+   DRYRUN_BUDGET_S;
+13. one ``{"kernels": [...]}`` line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 A record of the run is written to ``chip_smoke_out/chip_smoke.json`` and the
@@ -457,6 +465,18 @@ FAMILY_TRAIN_STEPS = 3
 # Phase 11, counting: the smoke configs' steps on both devices, float32
 COUNT_BATCH, COUNT_SEQ, COUNT_GEN = 2, 64, 2
 COUNT_SCALE = 12                # rmat of phase 11b
+
+# Phase 12, the dry run on meta tensors: every arch's decode cell on the
+# single-pod mesh, and the per-rank train state (16 B a parameter: the
+# float32 master, its gradient, AdamW's m and v) predicted in GiB on
+# pod16x16 and multipod2x16x16 from the JAX package's rules
+DRYRUN_SHAPE = "decode_32k"
+DRYRUN_STATE_GIB = {"qwen2.5-32b": (1.92, 0.97),
+                    "jamba-v0.1-52b": (3.19, 1.70),
+                    "qwen3-moe-30b-a3b": (1.79, 0.90),
+                    "rwkv6-3b": (1.27, 0.72),
+                    "qwen1.5-0.5b": (0.03, 0.02)}
+DRYRUN_BUDGET_S = 120
 
 
 _T0 = time.perf_counter()
@@ -4138,6 +4158,135 @@ def phase_counting(torch, dev, record) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the dry run
+# ---------------------------------------------------------------------------
+
+def _meta_train_count(arch: str, remat: str, batch: int, seq: int) -> dict:
+    """One train step of ``arch``'s full config on ``meta`` tensors under a
+    ``CostCounter``, the hyperparameters of the counted steps of phases
+    9b, 9e and 10e (AdamW with a warm-up of one step): its cost and the
+    host seconds it took.  Touches no card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, flops
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainHParams, make_train_step
+    cfg = get_config(arch)
+    step = make_train_step(cfg, TrainHParams(
+        remat=remat, adamw=opt.AdamWConfig(warmup_steps=1)))
+    t0 = time.perf_counter()
+    cost = flops.cost_of(step, dryrun.meta_train_state(cfg),
+                         api.train_input_specs(cfg, batch, seq))
+    return dict(cost, seconds=time.perf_counter() - t0)
+
+
+def _placed_train_state(torch, arch, mesh, rules) -> dict:
+    """Rank 0's bytes of ``arch``'s float32 masters on ``mesh`` (the rules'
+    DTensor placements of a ``meta`` model), the train state's at 16 B a
+    parameter, and the parameters no rule shards."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    model = dryrun.meta_model(get_config(arch), torch.float32)
+    placed = dryrun.placed_params(model, mesh, rules)
+    master = dryrun.placed_bytes(placed, mesh)
+    return dict(master_bytes=master, state_gib=4 * master / 2 ** 30,
+                replicated_params=sum(p.numel() for p, spec in placed
+                                      if not any(spec)))
+
+
+def phase_dryrun(torch, record) -> None:
+    """Phase 12: the dry run (``launch/dryrun.py``) on the card's torch; no
+    tensor of it lives on the card.  (a) The fake process groups of 256
+    and 512 ranks and their production meshes; every parameter of the ten
+    full configs placed on both by the rules, each arch's per-rank train
+    state logged beside its prediction (DRYRUN_STATE_GIB, to 0.005 GiB);
+    (b) ``run_cell`` of every arch at DRYRUN_SHAPE on pod16x16, each
+    ``ok``; (c) the counted train steps of phases 9b (Qwen1.5-0.5B under
+    ``none`` and ``full``), 9e (RWKV6-3B) and 10e (InternVL2-2B,
+    SeamlessM4T) counted again on ``meta``: ``flops``, ``matmul_flops``,
+    ``bytes`` and every kernel's charge equal to the card's.  The phase
+    must end within DRYRUN_BUDGET_S."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+    t0 = time.perf_counter()
+    placed, cells = {}, {}
+    for k, (tag, (ranks, multi)) in enumerate(dryrun.MESHES.items()):
+        with lmesh.fake_world(ranks):
+            mesh = lmesh.make_production_mesh(multi_pod=multi)
+            rules = lmesh.make_rules(mesh)
+            _log(f"dry run: {mesh} over a fake group of {ranks} ranks; "
+                 f"rules {rules}")
+            for arch in list_archs():
+                p = _placed_train_state(torch, arch, mesh, rules)
+                placed.setdefault(arch, {})[tag] = p
+                want = DRYRUN_STATE_GIB.get(arch, (None, None))[k]
+                _log(f"dry run {tag} {arch}: train state "
+                     f"{p['state_gib']:.4f} GiB a rank (predicted "
+                     f"{want}), {p['replicated_params']} parameters "
+                     f"replicated")
+                if want is not None and abs(p["state_gib"] - want) > \
+                        0.005:
+                    raise AssertionError(
+                        f"dry run {tag} {arch}: {p['state_gib']} GiB "
+                        f"a rank, predicted {want}")
+            if tag != "pod16x16":
+                continue
+            for arch in list_archs():
+                rec = dryrun.run_cell(arch, DRYRUN_SHAPE, mesh, rules,
+                                      tag, str(OUT_DIR / "dryrun"))
+                if rec["status"] != "ok":
+                    raise AssertionError(f"dry run {arch} "
+                                         f"{DRYRUN_SHAPE}: {rec}")
+                cells[arch] = rec
+                mem = rec["memory"]
+                _log(f"dry run {tag} {arch} {DRYRUN_SHAPE}: flops "
+                     f"{rec['jaxpr_flops_global']}, matmul "
+                     f"{rec['counted_matmul_flops']}, bytes "
+                     f"{rec['jaxpr_bytes_global']}; a rank's arguments "
+                     f"{mem['argument_bytes']} B (parameters "
+                     f"{mem['param_bytes']}, state {mem['state_bytes']})")
+    t_cells = time.perf_counter() - t0
+    run = record["train"]["run"]
+    cases = {
+        f"{TRAIN_ARCH} none": ((TRAIN_ARCH, "none", TRAIN_BATCH,
+                                TRAIN_SEQ), run["none"]),
+        f"{TRAIN_ARCH} full": ((TRAIN_ARCH, "full", TRAIN_BATCH,
+                                TRAIN_SEQ), run["full"]),
+        VLM_ARCH: ((VLM_ARCH, "full", TRAIN_BATCH, TRAIN_SEQ),
+                   record["train"][VLM_ARCH]),
+        ENCDEC_ARCH: ((ENCDEC_ARCH, "full", TRAIN_BATCH, TRAIN_SEQ),
+                      record["train"][ENCDEC_ARCH]),
+        RWKV_ARCH: ((RWKV_ARCH, "full", RWKV_TRAIN_BATCH, TRAIN_SEQ),
+                    record["train"]["rwkv6"])}
+    counts = {label: _meta_train_count(*args)
+              for label, (args, _) in cases.items()}
+    for label, (_, card) in cases.items():
+        got = counts[label]
+        want = dict(flops=card["counted_flops"],
+                    matmul_flops=card["counted_matmul_flops"],
+                    bytes=card["counted_bytes"],
+                    kernels=card["counted_kernels"])
+        diff = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        _log(f"dry run count {label}: flops {got['flops']}, matmul "
+             f"{got['matmul_flops']}, bytes {got['bytes']} on meta in "
+             f"{got['seconds']:.2f} s; the card's counted step "
+             f"{'equal' if not diff else diff}")
+        if diff:
+            raise AssertionError(f"dry run count {label}: meta and the card "
+                                 f"differ: {diff}")
+    seconds = time.perf_counter() - t0
+    record["dryrun"] = dict(placed=placed, cells=cells, counts=counts,
+                            cells_s=t_cells, seconds=seconds)
+    _log(f"phase 12 (the dry run): {seconds:.1f} s ({t_cells:.1f} s the "
+         f"meshes, placements and cells; counts on meta "
+         f"{ {k: round(v['seconds'], 2) for k, v in counts.items()} } s)")
+    if seconds > DRYRUN_BUDGET_S:
+        raise AssertionError(f"phase 12 took {seconds:.1f} s, over its "
+                             f"{DRYRUN_BUDGET_S} s")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5d: the MST service
 # ---------------------------------------------------------------------------
 
@@ -5152,6 +5301,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     phase_counting(torch, dev, record)
+    phase_dryrun(torch, record)
 
     rows.append(ghs_row)
     for row in rows:

@@ -3,7 +3,9 @@ the launch counts that show a run went through the kernels.
 
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel on a CUDA tensor, and nowhere else; on a CPU tensor it
-runs the plain version and counts nothing.  Each entry is also wrapped by
+runs the plain version and counts nothing.  On a ``meta`` tensor (the dry
+run, ``launch/dryrun.py``) the model kernels K6-K9 return empty outputs
+and count nothing; the others raise.  Each entry is also wrapped by
 ``launch/flops.kernel``, which charges the call's work under the same name
 to an active ``CostCounter``, on either device.
 """

@@ -125,7 +125,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k, v (B, Hkv, S, D); ``length`` int32 (B,).
 
     Returns (B, Hq, D) in q's type.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version; any other device raises.
+    tensors take the plain version; ``meta`` tensors (the dry run) get an
+    empty output and compute nothing; any other device raises.
     """
     check_heads("decode_attention", q, k, v)
     if q.ndim != 3:
@@ -136,6 +137,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: length must be on q's device")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, length, scale=scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise RuntimeError(f"decode_attention: no kernel for {q.device}")
     lib = _load()

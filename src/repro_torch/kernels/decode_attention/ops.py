@@ -3,8 +3,9 @@
 The JAX package runs ``grouped_decode_attention`` (one einsum) unless
 ``use_pallas`` picks its Pallas kernel, and also has the XLA strategy
 ``chunked_decode_attention``.  The port always runs its kernel on the card
-and the plain version on the CPU; the two XLA strategies wait (ROADMAP
-queue 1, item 14).
+and the plain version on the CPU, which stands for
+``grouped_decode_attention``; the JAX dispatch never calls
+``chunked_decode_attention``, so it has no counterpart here.
 """
 from __future__ import annotations
 

@@ -83,12 +83,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     == 0, and S_kv == S when ``causal``.
 
     Returns (B, Hq, S, D) in q's type.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version; any other device raises.
+    tensors take the plain version; ``meta`` tensors (the dry run) get an
+    empty output and compute nothing; any other device raises.
     """
     check_heads("flash_attention", q, k, v)
     check_lengths("flash_attention", q, k, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
     from repro_torch.kernels import build

@@ -58,12 +58,18 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
 
     Returns y (B, T, dim) in x's type and, with ``return_state``, the final
     state (B, dim, N) float32.  CUDA tensors launch the kernel; CPU tensors
-    take the plain version; any other device raises.
+    take the plain version; ``meta`` tensors (the dry run) get empty
+    outputs and compute nothing; any other device raises.
     """
     _check(x, dt, b, c, a, d)
     if x.device.type == "cpu":
         return selective_scan_plain(x, dt, b, c, a, d,
                                     return_state=return_state)
+    if x.device.type == "meta":
+        y = torch.empty_like(x)
+        state = torch.empty((x.shape[0], x.shape[2], b.shape[2]),
+                            dtype=acc_dtype(x.dtype), device="meta")
+        return (y, state) if return_state else y
     if x.device.type != "cuda":
         raise RuntimeError(f"selective_scan: no kernel for {x.device}")
     from repro_torch.kernels import build

@@ -22,6 +22,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.flash_attention import (
     TYPES, check_launch)
+from repro_torch.kernels.flash_attention.ref import acc_dtype
 from repro_torch.kernels.rwkv6 import ref
 from repro_torch.launch import flops
 
@@ -49,11 +50,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
     Returns out (BH, T, D) in r's type and, with ``return_state``, the
     final state (BH, D, D) float32.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version; any other device raises.
+    tensors take the plain version; ``meta`` tensors (the dry run) get
+    empty outputs and compute nothing; any other device raises.
     """
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, return_state=return_state)
+    if r.device.type == "meta":
+        out = torch.empty_like(r)
+        state = torch.empty((r.shape[0], r.shape[2], r.shape[2]),
+                            dtype=acc_dtype(r.dtype), device="meta")
+        return (out, state) if return_state else out
     if r.device.type != "cuda":
         raise RuntimeError(f"wkv6: no kernel for {r.device}")
     from repro_torch.kernels import build

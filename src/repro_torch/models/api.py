@@ -19,8 +19,8 @@ from repro_torch.core import runtime
 from repro_torch.models import encdec, jamba, layers, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 
-# family -> the slice of ROADMAP queue 1, item 14 that brings it (none
-# waits since slice 4a)
+# family -> what it waits for; empty, since every family is ported
+# (ROADMAP queue 1, item 14, done)
 WAITING: dict = {}
 
 

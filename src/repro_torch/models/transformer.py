@@ -110,7 +110,8 @@ class Transformer(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the transformer serves the {FAMILIES} "
-                f"families, not {cfg.family} (ROADMAP queue 1, item 14)")
+                f"families, not {cfg.family}, which models.api.get_model "
+                f"gives a model of its own (ROADMAP queue 1, item 14, done)")
         self.cfg = cfg
         dt = layers.wdtype(cfg, master)
         new = functools.partial(layers.param, device=device,

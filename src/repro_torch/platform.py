@@ -17,8 +17,8 @@ called too late to take effect: after CUDA has initialized.
 
 No counterpart, by design:
 
-* ``force_host_device_count`` -- the fake process group of the dry run
-  (ROADMAP queue 1, item 14 slice 4c) takes its place;
+* ``force_host_device_count`` -- the fake process group of the dry run,
+  ``launch/mesh.fake_world``, takes its place;
 * ``set_x64`` -- the port carries 64-bit words explicitly, as int64 with
   the sign bit flipped (hazard H2), so there is no global width to set;
 * ``latency_hiding_flags`` -- XLA flags; their counterpart is NCCL overlap

@@ -73,3 +73,16 @@ def make_decode_step(cfg: ModelConfig, *, sample: str = "greedy",
         return nxt[:, None], new_state, logits
 
     return decode_step
+
+
+def decode_input_specs(cfg: ModelConfig, batch: int, cache_len: int):
+    """One decode step's (state, tokens) as ``meta`` tensors, the dry run's
+    inputs: the family's decode state of ``cache_len`` positions, its
+    caches standing at ``cache_len - 1`` (the step decodes the last slot,
+    as the JAX package's specs assume), and tokens (B, 1) int32."""
+    state = get_model(cfg).make_decode_state(cfg, batch, cache_len,
+                                             device="meta")
+    cache = state[0] if cfg.family == "encdec" else state
+    if hasattr(cache, "index"):
+        cache.index = cache_len - 1
+    return state, torch.empty((batch, 1), dtype=torch.int32, device="meta")

@@ -246,12 +246,19 @@ def test_attention_wrappers_check_inputs():
         flash_attention(q.double(), k, v)
     with pytest.raises(ValueError, match="length"):
         decode_attention(q[:, :, 0], k, v, torch.ones(1, dtype=torch.int64))
+    # meta tensors (the dry run): an empty output of the plain version's
+    # shape and type, no launch
     meta = [t.to("meta") for t in (q, k, v)]
-    with pytest.raises(RuntimeError, match="no kernel"):
-        flash_attention(*meta)
-    with pytest.raises(RuntimeError, match="no kernel"):
+    out = flash_attention(*meta)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape,
+                                                       q.dtype)
+    out = decode_attention(meta[0][:, :, 0], meta[1], meta[2],
+                           torch.ones(1, dtype=torch.int32, device="meta"))
+    assert (out.device.type, out.shape) == ("meta", q[:, :, 0].shape)
+    with pytest.raises(ValueError, match="q's device"):
         decode_attention(meta[0][:, :, 0], meta[1], meta[2],
-                         torch.ones(1, dtype=torch.int32, device="meta"))
+                         torch.ones(1, dtype=torch.int32))
+    assert kernels.LAUNCHES == before
 
 
 # --- decode attention (K7) ---------------------------------------------------

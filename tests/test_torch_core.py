@@ -305,6 +305,17 @@ def test_port_imports_neither_jax_nor_repro():
         "                     st, api.synth_batch(0, cfg, 2, 16, device='cpu'))\n"
         "assert cost['kernels']['flash_attention']['calls'] == 2, cost\n"
         "assert cost['matmul_flops'] > 0 and cost['bytes'] > 0, cost\n"
+        "import tempfile\n"
+        "from repro_torch.configs import shapes\n"
+        "from repro_torch.sharding import specs\n"
+        "from repro_torch.launch import dryrun, mesh\n"
+        "dryrun.get_config = lambda arch: get_config(arch, smoke=True)\n"
+        "with mesh.fake_world(256), tempfile.TemporaryDirectory() as out:\n"
+        "    m = mesh.make_production_mesh()\n"
+        "    rec = dryrun.run_cell('qwen1.5-0.5b', 'decode_32k', m,\n"
+        "                          mesh.make_rules(m), 'pod16x16', out)\n"
+        "assert rec['status'] == 'ok', rec\n"
+        "assert rec['kernels']['decode_attention']['calls'] == 2, rec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

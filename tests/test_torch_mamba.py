@@ -265,9 +265,16 @@ def test_scan_wrapper_checks_inputs():
         selective_scan(x, dt.double(), b, c, a, d)
     with pytest.raises(TypeError, match="float32"):
         selective_scan(x, dt, b, c, a.double(), d)
+    # meta tensors (the dry run): empty outputs of the plain version's
+    # shapes and types
     meta = [z.to("meta") for z in (x, dt, b, c, a, d)]
-    with pytest.raises(RuntimeError, match="no kernel"):
-        selective_scan(*meta)
+    y, state = selective_scan(*meta, return_state=True)
+    assert (y.device.type, y.shape, y.dtype) == ("meta", x.shape, x.dtype)
+    assert (state.shape, state.dtype) == ((x.shape[0], x.shape[2],
+                                           b.shape[2]), torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        selective_scan(*meta[:5], d)
+    assert kernels.LAUNCHES == before
 
 
 # --- the mixer and the model ------------------------------------------------

@@ -298,9 +298,17 @@ def test_wkv6_wrapper_checks_inputs():
         wkv6(r, k[:, :4], v, w, u)
     with pytest.raises(TypeError):
         wkv6(r, k, v, w.double(), u)
+    # meta tensors (the dry run): empty outputs of the plain version's
+    # shapes and types
     meta = [t.to("meta") for t in (r, k, v, w, u)]
-    with pytest.raises(RuntimeError, match="no kernel"):
-        wkv6(*meta)
+    out, state = wkv6(*meta, return_state=True)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", r.shape,
+                                                       r.dtype)
+    assert (state.shape, state.dtype) == ((r.shape[0], r.shape[2],
+                                           r.shape[2]), torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        wkv6(*meta[:4], u)
+    assert kernels.LAUNCHES == before
 
 
 # --- the model ---------------------------------------------------------------
